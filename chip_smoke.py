@@ -17,14 +17,32 @@ Phases, each printing one JSON line:
    (``use_kernel=False``) path;
 5. exp2_expsum: the same loop with exp-sum memory (K=8) through the exp-sum
    kernel, with f32 and bf16 accumulators, against the plain path;
-6. timing: CUDA-event medians of each kernel, its plain version and (exact)
+6. faults: with every link dropped, ``mix_time_varying`` returns the states
+   bit for bit; under symmetric drops the network mean holds to f32
+   rounding; ``mix_hierarchical`` (period 1) equals ``mix_stacked`` with the
+   Kronecker product;
+7. exp1: Exp 1 at the paper's full protocol (100 sets, 50 circle starts,
+   5000 rounds, 3 variants, one batch) on the card, with iteration counts
+   equal to the same sweep on the CPU; the paper's headline claims; the
+   150-step telemetry trace against ``benchmarks/baselines/exp1.json``; the
+   representative point through ``core.loop`` with the exact kernel at
+   T = 90 padded to 100 slots (one launch per round after the first),
+   against the inline trace;
+8. exp3: Exp 3 at the regression scale (seed 0, 400 quadratic and 50
+   federated rounds): its quadratic series against
+   ``benchmarks/baselines/exp3.json``, the exact-kernel launches of the
+   FrODO arms, kernel vs plain path per round, the >= 2x robustness
+   headline at 30% drop; ms per round; then the default scale (2000 / 150),
+   timed, in both drop modes;
+9. timing: CUDA-event medians of each kernel, its plain version and (exact)
    one library call, beside the memory bound; the Exp 2 ms/step;
-7. profile: torch.profiler device time per launch of each kernel at each
-   Exp 2 leaf, and an Exp 2 step's device time, busy share and top kernels.
+10. profile: torch.profiler device time per launch of each kernel at each
+    Exp 2 leaf, and an Exp 2 step's device time, busy share and top kernels.
 
-Then the ``{"kernels": [...]}`` summary line, the ``nvidia-smi`` line, and
-last ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
-script exits non-zero and prints no result.
+Then the ``{"kernels": [...]}`` summary line (launches per path: exp2,
+exp1_point, exp3, each counted from 0 just before the path runs), the
+``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Any failed
+check raises, so the script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
@@ -61,6 +79,23 @@ ACC_TOL = {"float32": dict(rtol=1e-5, atol=1e-5),
 LOSS_TOL = {"exact": dict(rtol=1e-3, atol=1e-5),
             "expsum_float32": dict(rtol=1e-3, atol=1e-5),
             "expsum_bfloat16": dict(rtol=5e-2, atol=1e-3)}
+# trajectories against benchmarks/baselines/*.json: benchmarks/regress.py's
+# defaults (timing excluded: the baselines' step times are JAX's on a CPU)
+REGRESS_TOL = dict(rtol=0.05, atol=1e-6, max_violation_frac=0.02)
+# mix_hierarchical (two contractions) vs one contraction with the Kronecker
+# product: f32 sums of <= 4 terms in another order
+MIX_TOL = dict(rtol=1e-5, atol=1e-6)
+# the Exp 1 point through core.loop (autograd gradients, the kernel's fused
+# -(a g + b M) added) vs the inline trace (analytic gradients, a g and b M
+# subtracted): ~1e-7 relative rounding per round of states of size ~2, on
+# an error that decays from 1 to below 1e-6, so an absolute floor of ~20 f32
+# ulps of those states (the two differ by 7.5e-7 at an error of 1e-5 on the
+# CPU)
+EXP1_POINT_ROUNDS = 600
+POINT_TOL = dict(rtol=1e-4, atol=5e-6)
+# Exp 3 quadratic error, kernel vs plain path (the 90 slots summed in
+# another order), 400 rounds
+EXP3_QUAD_TOL = dict(rtol=1e-4, atol=1e-6)
 
 
 def emit(phase: str, **kw) -> None:
@@ -114,6 +149,329 @@ def device_kernel_us(fn) -> dict:
         us = getattr(e, "self_device_time_total",
                      getattr(e, "self_cuda_time_total", 0.0))
         out[e.key] = (e.count, float(us))
+    return out
+
+
+def close_np(a, b, tol) -> tuple:
+    """(every |a - b| <= atol + rtol |b|, the largest |a - b|)."""
+    import numpy as np
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    err = np.abs(a - b)
+    return (bool((err <= tol["atol"] + tol["rtol"] * np.abs(b)).all()),
+            float(err.max()) if err.size else 0.0)
+
+
+def baseline_check(name: str, rows, keep) -> dict:
+    """Hold the series of ``rows`` whose label passes ``keep`` against the
+    committed golden baseline ``benchmarks/baselines/<name>.json`` with the
+    regression gate's tolerances (timing excluded).  Raises on drift."""
+    from repro_torch.obs import regress as R
+    base = R.load_baseline(os.path.join(ROOT, "benchmarks", "baselines",
+                                        f"{name}.json"))
+    base["series"] = {k: v for k, v in base["series"].items() if keep(k)}
+    rows = [r for r in rows if keep(R.group_label(r))]
+    diffs = R.compare_to_baseline(base, rows, R.Tolerance(**REGRESS_TOL),
+                                  include_timing=False)
+    check(bool(diffs) and all(d.passed for d in diffs),
+          f"{name} against its baseline:\n{R.format_report(diffs)}")
+    return {"series": len(base["series"]), "checks": len(diffs),
+            "worst_violation_frac": max(d.violation_frac for d in diffs)}
+
+
+def faults_phase(dev) -> None:
+    """Fault-aware consensus on the card: identity mixing bit-exact, the
+    network mean conserved under symmetric drops, hierarchical mixing equal
+    to its Kronecker product."""
+    import numpy as np
+    import torch
+    from repro_torch import tree as TR
+    from repro_torch.core import consensus as C
+    from repro_torch.core import faults as F
+    from repro_torch.core import graph as G
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def state(A):        # the Exp 3 federated leaves, A agents
+        return {k: torch.randn((A,) + s, generator=gen, device=dev)
+                for k, s in {"w0": (784, 64), "b0": (64,), "w1": (64, 10),
+                             "b1": (10,)}.items()}
+
+    def seq(c):
+        return torch.as_tensor(c.W_seq, dtype=torch.float32, device=dev)
+
+    x = state(4)
+    dark = F.FaultSchedule(link_drop=1.0).compile(
+        G.complete(4), 8, weight_fn=G.xiao_boyd_weights)
+    W_seq = seq(dark)
+    for k in range(12):                        # wraps past the horizon
+        out = C.mix_time_varying(x, W_seq, k)
+        for n in x:
+            check(torch.equal(out[n].view(torch.int32),
+                              x[n].view(torch.int32)),
+                  f"drop 1.0 mixing not bit-exact at step {k}, leaf {n}")
+
+    steps = 100
+    sym = F.FaultSchedule(link_drop=0.3, seed=0, drop_mode="symmetric")
+    W_seq = seq(sym.compile(G.complete(4), steps,
+                            weight_fn=G.xiao_boyd_weights))
+    mean0 = {n: v.double().mean(0) for n, v in x.items()}
+    scale = max(float(v.abs().max()) for v in x.values())
+    # each step's 4-term dot products round at most 4 times per entry
+    mean_tol = steps * 4 * float(np.finfo(np.float32).eps) * scale
+    y, drift = x, torch.zeros((), dtype=torch.float64, device=dev)
+    for k in range(steps):
+        y = C.mix_time_varying(y, W_seq, k)
+        for n in y:
+            drift = torch.maximum(drift, (y[n].double().mean(0)
+                                          - mean0[n]).abs().max())
+    drift = float(drift)
+    check(drift <= mean_tol, f"symmetric drops moved the network mean by "
+          f"{drift} > {mean_tol}")
+
+    hier = {}
+    for label, W_pod, W_intra in (
+            ("uniform", G.uniform_weights(G.complete(2)),
+             G.uniform_weights(G.complete(4))),
+            ("metropolis", G.metropolis_weights(G.ring(3, directed=False)),
+             G.metropolis_weights(G.ring(4, directed=False)))):
+        x = state(W_pod.shape[0] * W_intra.shape[0])
+        got = C.mix_hierarchical(x, W_intra, W_pod, step=0, period=1)
+        ref = C.mix_stacked(x, torch.as_tensor(
+            np.kron(W_pod, W_intra), dtype=torch.float32, device=dev))
+        worst = 0.0
+        for a, b in zip(TR.leaves(got), TR.leaves(ref)):
+            ok, err = close_np(a.cpu(), b.cpu(), MIX_TOL)
+            check(ok, f"mix_hierarchical ({label}) vs kron: {err}")
+            worst = max(worst, err)
+        hier[label] = worst
+    emit("faults", identity_mixing="bit-equal over 12 steps (drop 1.0)",
+         symmetric_mean_drift=drift, symmetric_mean_tol=mean_tol,
+         symmetric_steps=steps, hierarchical_vs_kron_max_abs_err=hier,
+         hierarchical_tol=MIX_TOL)
+
+
+def exp1_phase(dev) -> dict:
+    """Exp 1 at the paper's full protocol on the card, against the same
+    sweep on the CPU; its headline claims; its telemetry trace against the
+    committed baseline; the representative point through core.loop with
+    the exact kernel at T = 90 padded to 100 slots."""
+    import tempfile
+    import time
+
+    import numpy as np
+    import torch
+    from repro_torch.core import graph as G
+    from repro_torch.core import loop
+    from repro_torch.core.frodo import FrodoConfig, frodo
+    from repro_torch.experiments import exp1_quadratic as E1
+    from repro_torch.kernels import frodo_update as KU
+    from repro_torch.kernels import ops
+    from repro_torch.obs.metrics import read_jsonl
+
+    t0 = time.perf_counter()
+    card = E1.sweep(n_sets=100, n_circle=50, seed=0, device=dev)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = E1.sweep(n_sets=100, n_circle=50, seed=0, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    n_runs = n_diff = 0
+    for v in E1.VARIANTS:
+        for a, b in [(card[v]["named"][k], host[v]["named"][k])
+                     for k in E1.NAMED_STARTS] + [(card[v]["circle"],
+                                                   host[v]["circle"])]:
+            n_runs += a.size
+            n_diff += int((a != b).sum())
+    check(n_diff == 0, f"Exp 1 iteration counts: {n_diff} of {n_runs} runs "
+          "differ between the card and the CPU")
+    s = E1.summarize(card)
+    frac, hb, nm = (s[v]["circle_mean"] for v in E1.VARIANTS)
+    r = s["steep_flat_ratio"]
+    ks = s["ks_tests"]["one_sided_fractional<no_memory"]["p"]
+    check(frac < hb < nm, f"circle means out of order: {frac} {hb} {nm}")
+    check(nm / frac > 2.0, f"no memory / fractional = {nm / frac} <= 2")
+    check(r["fractional"] < r["heavy_ball"] < r["no_memory"],
+          f"steep/flat ratios out of order: {r}")
+    check(ks < 1e-3, f"one-sided KS p = {ks} >= 1e-3")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "exp1.jsonl")
+        E1.write_metrics_jsonl(path, steps=150, device=dev)
+        rows = read_jsonl(path)
+    base = baseline_check("exp1", rows, lambda label: True)
+
+    K = EXP1_POINT_ROUNDS
+    point = (0.8, 0.35, 0.15, 90.0)
+    KU.reset_launches()
+    res = loop.run(E1.objective, torch.tensor([[1.0, 0.0]] * 4, device=dev),
+                   frodo(FrodoConfig(alpha=0.8, beta=0.35, lam=0.15, T=90,
+                                     pad_T=100, use_kernel=True)),
+                   G.xiao_boyd_weights(G.complete(4)), K,
+                   x_star=np.zeros(2, np.float32))
+    launches = dict(ops.LAUNCHES)
+    check(launches == {"frodo_exact_update": K - 1, "frodo_expsum_update": 0},
+          f"exact launches on the Exp 1 point: {launches}")
+    inline = E1.telemetry_trace((1.0, 0.0), *(np.float32(v) for v in point),
+                                K, device=dev)["error"]
+    ok, err = close_np(res["errors"], inline, POINT_TOL)
+    check(ok, f"Exp 1 point through the kernel vs the inline trace: {err}")
+    emit("exp1", sets=100, circle=50, k_max=E1.K_MAX, seed=0, runs=n_runs,
+         sweep_seconds_card=card_s, sweep_seconds_cpu=cpu_s,
+         runs_differing_card_vs_cpu=n_diff, tol_iterations=0,
+         circle_mean={v: s[v]["circle_mean"] for v in E1.VARIANTS},
+         no_memory_over_fractional=nm / frac, steep_flat_ratio=r,
+         ks_one_sided_p={k: v["p"] for k, v in s["ks_tests"].items()
+                         if k.startswith("one_sided")},
+         telemetry_vs_baseline=base,
+         point={"alpha": 0.8, "beta": 0.35, "lam": 0.15, "T": 90,
+                "pad_T": 100, "rounds": K, "launches": launches,
+                "max_abs_err_vs_inline": err, "tol": POINT_TOL,
+                "iters_to_1e-6": loop.iterations_to_tol(res["errors"])})
+    return launches
+
+
+def exp3_phase(dev) -> dict:
+    """Exp 3 at the regression scale on the card: the quadratic series
+    against the committed baseline, exact-kernel launches, kernel vs plain
+    path, the robustness headline; then the default scale, timed, in both
+    drop modes."""
+    import tempfile
+    import time
+
+    from repro_torch.experiments import exp3_faults as E3
+    from repro_torch.kernels import frodo_update as KU
+    from repro_torch.kernels import ops
+    from repro_torch.obs.metrics import read_jsonl
+
+    n_leaves = 4                                   # w0, b0, w1, b1
+    quad, fed = 400, 50                            # benchmarks/regress.py
+    n_drops = 1 + len(E3.DROP_RATES)
+
+    def expected(q, f):                            # FrODO arms only
+        return {"frodo_exact_update": n_drops * ((q - 1) + n_leaves * f),
+                "frodo_expsum_update": 0}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "exp3.jsonl")
+        KU.reset_launches()
+        t0 = time.perf_counter()
+        summary = E3.run_experiment(seed=0, quad_steps=quad, fed_steps=fed,
+                                    metrics_out=path, metrics_steps=60,
+                                    device=dev)
+        reg_s = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        rows = read_jsonl(path)
+    check(launches == expected(quad, fed),
+          f"exact launches on Exp 3: {launches} != {expected(quad, fed)}")
+    base = baseline_check("exp3", rows, lambda label: "quadratic-" in label)
+    row = summary["quadratic"]["drop30"]
+    check(row["frodo"]["iters_to_tol"] < quad,
+          f"FrODO at 30% drop did not reach {E3.QUAD_TOL}: {row}")
+    check(row["dgd_over_frodo_iters"] >= 2.0,
+          f"DGD / FrODO iterations at 30% drop < 2: {row}")
+
+    vs_plain = {}
+    for drop in (0.0,) + E3.DROP_RATES:
+        k = E3.run_quadratic("frodo", drop, quad, 0, device=dev)["errors"]
+        p = E3.run_quadratic("frodo", drop, quad, 0, device=dev,
+                             use_kernel=False)["errors"]
+        ok, err_q = close_np(k, p, EXP3_QUAD_TOL)
+        check(ok, f"Exp 3 quadratic errors, kernel vs plain, drop {drop}: "
+              f"{err_q}")
+        k = E3.run_federated("frodo", drop, fed, 0, device=dev)["loss"]
+        p = E3.run_federated("frodo", drop, fed, 0, device=dev,
+                             use_kernel=False)["loss"]
+        ok, err_f = close_np(k, p, LOSS_TOL["exact"])
+        check(ok, f"Exp 3 federated loss, kernel vs plain, drop {drop}: "
+              f"{err_f}")
+        vs_plain[E3._drop_tag(drop)] = {"quadratic_errors": err_q,
+                                        "federated_loss": err_f}
+
+    def timed(fn):        # host clock; a run ends by copying to the host
+        fn()                                        # warm-up
+        t0 = time.perf_counter()
+        fn()
+        return (time.perf_counter() - t0) * 1e3
+
+    ms_per_round = {
+        f"{arm}_{path}": timed(lambda arm=arm, uk=uk: (
+            E3.run_quadratic("frodo", 0.3, 2000, 0, device=dev,
+                             use_kernel=uk) if arm == "quadratic" else
+            E3.run_federated("frodo", 0.3, 150, 0, device=dev,
+                             use_kernel=uk))) / (2000 if arm == "quadratic"
+                                                 else 150)
+        for arm in ("quadratic", "federated")
+        for path, uk in (("kernel", True), ("plain", False))}
+
+    default = {}
+    for mode in ("directed", "symmetric"):
+        KU.reset_launches()
+        t0 = time.perf_counter()
+        s = E3.run_experiment(seed=0, quad_steps=2000, fed_steps=150,
+                              device=dev, drop_mode=mode)
+        secs = time.perf_counter() - t0
+        got = dict(ops.LAUNCHES)
+        check(got == expected(2000, 150),
+              f"exact launches on Exp 3 ({mode}, default scale): {got}")
+        check(s["quadratic"]["drop30"]["dgd_over_frodo_iters"] >= 2.0,
+              f"robustness headline ({mode}, default scale): "
+              f"{s['quadratic']['drop30']}")
+        default[mode] = {
+            "seconds": secs, "launches": got["frodo_exact_update"],
+            "dgd_over_frodo_iters": {t: r["dgd_over_frodo_iters"]
+                                     for t, r in s["quadratic"].items()},
+            "frodo_iters_to_tol": {t: r["frodo"]["iters_to_tol"]
+                                   for t, r in s["quadratic"].items()},
+            "federated_final_loss_frodo": {
+                t: r["frodo"]["final_loss"] for t, r in s["federated"].items()
+                if isinstance(r, dict)}}
+    emit("exp3", seed=0, quad_steps=quad, fed_steps=fed, metrics_steps=60,
+         seconds=reg_s, launches=launches,
+         quadratic_vs_baseline=base,
+         federated_vs_baseline="not checked: the baseline's federated "
+         "initial weights come from JAX's non-partitionable threefry draw, "
+         "and there is no JAX on the card",
+         drop30=row, kernel_vs_plain_max_abs_err=vs_plain,
+         tol={"quadratic_errors": EXP3_QUAD_TOL,
+              "federated_loss": LOSS_TOL["exact"]},
+         ms_per_round_drop30=ms_per_round, default_scale=default)
+    return launches
+
+
+def slice_profile(dev) -> dict:
+    """Host ms and device ms per round of this slice's paths, and the
+    device's busy share: a warm-up call, a timed call (host clock; each
+    call ends by copying its result to the host), a profiled call."""
+    import time
+
+    import numpy as np
+    from repro_torch.experiments import exp1_quadratic as E1
+    from repro_torch.experiments import exp3_faults as E3
+
+    B, rounds = 1350, 50           # the full protocol's batch, 50 rounds
+    a, b, lam, T = E1.sample_hparams(B, 0)
+    x0s = np.tile(np.asarray([1.0, 0.0], np.float32), (B, 1))
+    paths = {
+        "exp1_sweep_round": (lambda: E1._algorithm1(
+            x0s, a, b, lam, T, rounds, dev).cpu(), rounds),
+        "exp3_quadratic_round": (lambda: E3.run_quadratic(
+            "frodo", 0.3, rounds, 0, device=dev), rounds),
+        "exp3_federated_round": (lambda: E3.run_federated(
+            "frodo", 0.3, 10, 0, device=dev), 10)}
+    out = {}
+    for label, (fn, n) in paths.items():
+        fn()
+        t0 = time.perf_counter()
+        fn()
+        host_ms = (time.perf_counter() - t0) * 1e3 / n
+        rows = device_kernel_us(fn)
+        dev_ms = sum(us for _, us in rows.values()) / n / 1e3
+        top = sorted(rows.items(), key=lambda kv: -kv[1][1])[:5]
+        out[label] = {
+            "host_ms": host_ms, "device_ms": dev_ms if rows else None,
+            "device_busy_share": dev_ms / host_ms if rows else None,
+            "kernels": sum(c for c, _ in rows.values()) / n,
+            "top_kernels": [{"name": k[:90], "us": us / n}
+                            for k, (_, us) in top]}
     return out
 
 
@@ -256,7 +614,7 @@ def main() -> int:
          loss_last=float(loss_k[-1]), acc_last=float(res_k["acc"][-1]),
          max_abs_loss_diff_vs_plain=float(diff.max()), tol=tol)
 
-    expsum_launches = 0
+    launches_exp2 = dict(launches_exact)
     for acc_dtype in ("float32", "bfloat16"):
         cfg = dict(alpha=ALPHA, beta=BETA, lam=0.15, T=T,
                    memory_mode="expsum", K=K, acc_dtype=acc_dtype)
@@ -266,7 +624,8 @@ def main() -> int:
         check(launches == {"frodo_exact_update": 0,
                            "frodo_expsum_update": n_per_step * STEPS},
               f"expsum launches ({acc_dtype}): {launches}")
-        expsum_launches += launches["frodo_expsum_update"]
+        launches_exp2["frodo_expsum_update"] += launches[
+            "frodo_expsum_update"]
         loss_k = res_k["loss"]
         check(bool(np.isfinite(loss_k).all()) and loss_k[-1] < 0.5 * loss_k[0],
               f"expsum ({acc_dtype}) loss did not fall: {loss_k}")
@@ -280,6 +639,15 @@ def main() -> int:
              launches=launches, loss_first=float(loss_k[0]),
              loss_last=float(loss_k[-1]),
              max_abs_loss_diff_vs_plain=float(diff.max()), tol=tol)
+
+    # --------------------------- faults, Exp 1 and Exp 3 (their own counts)
+    faults_phase(dev)
+    launches_exp1 = exp1_phase(dev)
+    launches_exp3 = exp3_phase(dev)
+    per_path = {name: {"exp2": launches_exp2[name],
+                       "exp1_point": launches_exp1[name],
+                       "exp3": launches_exp3[name]}
+                for name in ("frodo_exact_update", "frodo_expsum_update")}
 
     # ----------------------------------------------------------- timing
     def bound_ms(nbytes, flops):
@@ -390,6 +758,28 @@ def main() -> int:
         for k in leaves}
     del hists, accs
 
+    # the exact kernel at the leaves of this slice's paths (T = 90 weights;
+    # the Exp 1 point pads the buffer to 100 slots with zero weights)
+    mu90 = torch.tensor(fmem.mu_weights(90, 0.15), dtype=torch.float32,
+                        device=dev)
+    slice_us = {}
+    for label, (slots, shape) in {"exp3_federated_w0": (90, (4, 784, 64)),
+                                  "exp3_quadratic": (90, (4, 2)),
+                                  "exp1_point": (100, (4, 2))}.items():
+        g = torch.randn(shape, generator=gen, device=dev)
+        h = torch.randn((slots,) + shape, generator=gen, device=dev)
+        w = torch.zeros(slots, device=dev)
+        w[:90] = mu90
+        n = g.numel()
+        slice_us[label] = {
+            "slots": slots, "shape": list(shape),
+            "device_us": per_launch_us(lambda: KU.exact_update(
+                g, h, 5, w, ALPHA, BETA)),
+            "event_us": 1e3 * cuda_ms(lambda: KU.exact_update(
+                g, h, 5, w, ALPHA, BETA)),
+            "bound_us": 1e3 * bound_ms((slots + 3) * n * 4 + slots * 4,
+                                       2 * slots * n)[0]}
+
     prof_steps = 10
     prof_idx = idx[:prof_steps]
     breakdown = {}
@@ -411,6 +801,8 @@ def main() -> int:
                              "us_per_step": us / prof_steps}
                             for name, (c, us) in top]}
     emit("profile", nvidia_smi=smi, kernel_device_us_per_launch=leaf_us,
+         exact_kernel_on_slice_paths=slice_us,
+         slice_paths_per_round=slice_profile(dev),
          exp2_steps_profiled=prof_steps, exp2=breakdown,
          note="torch.profiler (CUPTI) device time; busy share = device "
               "ms/step over the unprofiled host-clock ms/step of the timing "
@@ -422,13 +814,15 @@ def main() -> int:
     kernels = [
         {"name": "frodo_exact_update", "route": "cuda", "source": src,
          "replaces": "src/repro/kernels/frodo_update.py:55",
-         "launches": launches_exact["frodo_exact_update"],
+         "launches": sum(per_path["frodo_exact_update"].values()),
+         "launches_per_path": per_path["frodo_exact_update"],
          "max_abs_err": exact_err["float32"],
          "shape": [T] + list(EXP2_LEAVES["w0"]), "dtype": "float32",
          **{k: ex[k] for k in keys}},
         {"name": "frodo_expsum_update", "route": "cuda", "source": src,
          "replaces": "src/repro/kernels/frodo_update.py:93",
-         "launches": expsum_launches,
+         "launches": sum(per_path["frodo_expsum_update"].values()),
+         "launches_per_path": per_path["frodo_expsum_update"],
          "max_abs_err": max(expsum_err["g=float32,acc=float32"].values()),
          "shape": [K] + list(EXP2_LEAVES["w0"]), "dtype": "float32",
          **{k: es["float32"][k] for k in keys}},

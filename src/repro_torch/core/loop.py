@@ -30,42 +30,65 @@ def _grads(objective, xs: torch.Tensor) -> torch.Tensor:
 def run(objective: Callable[[torch.Tensor, int], torch.Tensor],
         x0: torch.Tensor,                   # (N, n) initial agent states
         opt: Optimizer,
-        W: np.ndarray,                      # (N, N) row-stochastic mixing
+        W: Optional[np.ndarray],            # (N, N) row-stochastic mixing
         K: int,
-        x_star: Optional[torch.Tensor] = None,
-        faults=None,
+        x_star=None,
+        faults=None,                        # faults.CompiledFaults
         collect_metrics: bool = False,
         ) -> dict:
     """Run K rounds of Algorithm 1 on ``x0``'s device.  Returns a dict with
     the final states ``"x"``, the per-round mean distance to ``x_star``
     (``"errors"``, zeros without it) and the global objective
-    ``sum_i f_i(mean state)`` (``"f"``); ``collect_metrics=True`` adds
-    per-round ``consensus_error`` / ``consensus_error_pre_mix``.
+    ``sum_i f_i(mean state)`` (``"f"``).  ``x_star`` (a tensor or array) is
+    moved to ``x0``'s device here.
 
-    The fault-injection branch (``faults=``) is not ported yet."""
-    if faults is not None:
-        raise NotImplementedError(
-            "faults= is not ported to repro_torch yet; run it with the JAX "
-            "package")
+    With ``faults`` set (``W`` is then ignored and may be None), consensus
+    runs over the schedule's per-step ``W_t`` and its update mask applies:
+    an inactive agent (straggler, crashed) pushes a zero gradient into its
+    memory and takes a zero update for the round.  The result then also
+    carries the schedule's fault counter trajectories (``faults_*``, cycled
+    to K rounds).  ``collect_metrics=True`` adds per-round
+    ``consensus_error`` / ``consensus_error_pre_mix`` in either mode."""
     N = x0.shape[0]
+    dev = x0.device
     xs = x0
+    if x_star is not None:
+        x_star = torch.as_tensor(x_star, dtype=x0.dtype, device=dev)
+    if faults is not None:
+        # copied once per run; a round indexes them with its host integer
+        W_seq = torch.as_tensor(faults.W_seq, dtype=torch.float32,
+                                device=dev)
+        u_seq = torch.as_tensor(faults.update_mask, dtype=torch.float32,
+                                device=dev)
     opt_state = opt.init(x0)
     errs, fvals, pre, post = [], [], [], []
     for k in range(K):
         if k > 0:
             g = _grads(objective, xs)
+            if faults is not None:
+                # mask g before the update: the masked (zero) gradient is
+                # what the memory, kernel or not, pushes into its slot
+                u = u_seq[k % u_seq.shape[0]][:, None]
+                g = g * u.to(g.dtype)
             delta, opt_state = opt.update(g, opt_state, xs)
+            if faults is not None:
+                delta = delta * u.to(delta.dtype)
             xs = apply_updates(xs, delta)
+        if faults is not None:
+            mixed = consensus.mix_time_varying(xs, W_seq, k,
+                                               with_metrics=collect_metrics)
+        else:
+            mixed = consensus.mix_stacked(xs, W, with_metrics=collect_metrics)
         if collect_metrics:
-            xs, aux = consensus.mix_stacked(xs, W, with_metrics=True)
+            xs, aux = mixed
             pre.append(aux["consensus_error_pre"])
             post.append(aux["consensus_error_post"])
         else:
-            xs = consensus.mix_stacked(xs, W)
+            xs = mixed
         with torch.no_grad():
             errs.append(torch.mean(torch.linalg.vector_norm(
                 xs - x_star[None], dim=-1)) if x_star is not None
-                else torch.zeros((), device=xs.device))
+                else torch.zeros((), device=dev))
             xbar = xs.mean(dim=0)
             fvals.append(sum(objective(xbar, i) for i in range(N)))
     result = {"x": xs,
@@ -74,6 +97,10 @@ def run(objective: Callable[[torch.Tensor, int], torch.Tensor],
     if collect_metrics:
         result["consensus_error_pre_mix"] = torch.stack(pre).cpu().numpy()
         result["consensus_error"] = torch.stack(post).cpu().numpy()
+    if faults is not None:
+        idx = np.arange(K) % faults.n_steps
+        result.update({k: v[idx]
+                       for k, v in faults.counter_arrays().items()})
     return result
 
 

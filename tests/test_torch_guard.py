@@ -11,7 +11,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.device import resolve_device  # noqa: E402
+from repro_torch.experiments import exp1_quadratic as E1  # noqa: E402
 from repro_torch.experiments import exp2_federated as E  # noqa: E402
+from repro_torch.experiments import exp3_faults as E3  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = {"jax", "jaxlib", "repro", "benchmarks"}
@@ -73,6 +75,20 @@ def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
                 "--metrics-out", ""])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         E.run_one("frodo", 0, 1)
+    for main, run in ((E1.main, lambda: E1.run_experiment(n_sets=1,
+                                                          n_circle=1)),
+                      (E3.main, lambda: E3.run_experiment(quad_steps=1,
+                                                          fed_steps=1))):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main(["--out", "", "--metrics-out", ""])
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            run()
+    for call in (lambda: E1.run_batch([[1.0, 0.0]], [0.8], [0.3], [0.15],
+                                      [90.0]),
+                 lambda: E3.run_quadratic("gd", 0.1, 2, 0),
+                 lambda: E3.run_federated("gd", 0.1, 1, 0)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):

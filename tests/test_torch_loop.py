@@ -80,9 +80,3 @@ def test_first_round_is_consensus_only():
     out = tl.run(lambda x, i: 0.5 * torch.sum(x ** 2), x0,
                  tb.no_memory(1e9), W, 1, x_star=torch.zeros(2))
     np.testing.assert_allclose(out["x"].numpy(), W @ x0.numpy(), rtol=1e-6)
-
-
-def test_fault_branch_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        tl.run(tobj, torch.from_numpy(X0), tb.no_memory(0.1),
-               GRAPHS["xiao_boyd_complete"], 3, faults=object())
