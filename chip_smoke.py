@@ -34,13 +34,29 @@ Phases, each printing one JSON line:
    FrODO arms, kernel vs plain path per round, the >= 2x robustness
    headline at 30% drop; ms per round; then the default scale (2000 / 150),
    timed, in both drop modes;
-9. timing: CUDA-event medians of each kernel, its plain version and (exact)
+9. llm_train: the LLM trainer (``repro_torch.launch.train.run_training``)
+   on h2o-danube-1.8b at full width, depth cut to 8 layers, seq 4096, 2
+   agents x 2 sequences, FrODO exp-sum memory (K = 8, f32 accumulators)
+   through the exp-sum kernel on bf16 leaves: 20 steps, a falling loss,
+   240 launches, ms/step, tokens/s, peak memory, and a 3-step
+   torch.profiler window (the kernel's device time per step and at
+   ``blocks/mlp/up/w``, the top kernels, the busy share); then the
+   exact-memory sub-run (2 layers, T = 40, through the exact kernel),
+   kernel vs plain path in both memory modes (1 layer, seq 512; planted
+   faults must fail the same limit), the card
+   against the card machine's CPU (smoke config, f32, 12 steps), exp-sum
+   with bf16 accumulators (5 steps), and both kernels against their plain
+   versions on one full leaf each, past 2^31 elements of state (delta
+   within one bf16 ulp at few elements, state bit-equal; planted faults in
+   the plain version must fail the same check);
+10. timing: CUDA-event medians of each kernel, its plain version and (exact)
    one library call, beside the memory bound; the Exp 2 ms/step;
-10. profile: torch.profiler device time per launch of each kernel at each
+11. profile: torch.profiler device time per launch of each kernel at each
     Exp 2 leaf, and an Exp 2 step's device time, busy share and top kernels.
 
 Then the ``{"kernels": [...]}`` summary line (launches per path: exp2,
-exp1_point, exp3, each counted from 0 just before the path runs), the
+exp1_point, exp3, llm_train, llm_train_exact, llm_train_expsum_bf16acc,
+each counted from 0 just before the path runs), the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Any failed
 check raises, so the script exits non-zero and prints no result.
 """
@@ -132,9 +148,9 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
 
 
 def device_kernel_us(fn) -> dict:
-    """Device time of each kernel that ``fn`` runs, from torch.profiler
-    (CUPTI): ``{name: (launches, total_us)}``.  Empty if the profiler saw
-    no device activity."""
+    """Device time of each kernel (and copy) that ``fn`` runs, from
+    torch.profiler (CUPTI): ``{name: (launches, total_us)}``.  Empty if the
+    profiler saw no device activity."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -144,7 +160,10 @@ def device_kernel_us(fn) -> dict:
         torch.cuda.synchronize()
     out = {}
     for e in prof.key_averages():
-        if getattr(e, "device_type", None) != DeviceType.CUDA:
+        # the trace_scope ranges (consensus.*, pallas.*) show on the device
+        # timeline as annotations spanning kernels: not kernels themselves
+        if (getattr(e, "device_type", None) != DeviceType.CUDA
+                or getattr(e, "is_user_annotation", False)):
             continue
         us = getattr(e, "self_device_time_total",
                      getattr(e, "self_cuda_time_total", 0.0))
@@ -475,6 +494,492 @@ def slice_profile(dev) -> dict:
     return out
 
 
+# ----------------------------------------------------------- LLM trainer
+#: the llm_train phase: h2o-danube-1.8b at full width through the port's
+#: launcher (repro_torch.launch.train.run_training)
+LLM_ARCH = "h2o-danube-1.8b"
+#: ms/step is the median of steps 6-19: the window's steps run under the
+#: profiler, and step 5, the one after it, also times the trace's export.
+LLM = dict(n_layers=8, seq=4096, batch_per_agent=2, agents=2, steps=20,
+           T=90, profile=(2, 4), timed_from=6)
+LLM_REDUCED = {
+    "n_layers": "24 -> 8: two agents' exp-sum state (K = 8 f32 "
+                "accumulators, 46 GB) fits one 80 GB card",
+    "global_batch": "256 -> 4 (2 agents x 2 sequences of train_4k's 4096)"}
+#: the exact-memory sub-run (the launcher's default mode).  A sub-run's
+#: profile window comes last: the step after a window also times the
+#: trace's export, so ms/step is read from the steps before it.
+LLM_EXACT = dict(n_layers=2, T=40, steps=5, profile=(3, 4))
+#: kernel vs plain path, same settings otherwise: 1 layer, seq 512, 3 steps
+LLM_VS_PLAIN = dict(n_layers=1, seq=512, steps=3)
+#: exp-sum with bf16 accumulators
+LLM_BF16_ACC = dict(n_layers=8, steps=5, profile=(3, 4))
+#: card against the card machine's CPU: the smoke config in f32
+LLM_CARD_CPU = dict(steps=12)
+# Per-step loss, kernel path vs plain path, bf16 leaves, 3 steps at 1 layer.
+# The kernel forms -(a g + b M) in f32 and rounds once to bf16; the plain
+# path rounds a g, b M and their sum in bf16 (and, exact mode, M itself),
+# so the two parameter sets part by about a bf16 ulp where they part at all.
+# On an H100 the losses read 1.9e-6 (exact) and 8.2e-5 (exp-sum) apart, the
+# same in every run; the limit, 1e-4 of a loss of ~10.5, is 13 times the
+# larger.  The phase also runs the plain path with alpha or beta 10% high
+# (LLM_PLANTED; on an H100 2.0e-2 and 1.9e-3 from the kernel path) and
+# checks that this limit catches both.
+LLM_LOSS_TOL = dict(rtol=1e-4, atol=0.0)
+LLM_PLANTED = {"alpha_x1.1": dict(alpha=0.022), "beta_x1.1": dict(beta=0.0088)}
+# A bf16 delta on an LLM leaf, kernel vs plain version.  Both form
+# -(a g + b M) in f32 and round once to bf16, so an element can differ only
+# where the two f32 results (sums in another order, FMA) fall on either side
+# of a bf16 rounding boundary: by one bf16 ulp (at most 2^-7 of the value),
+# at few elements.  atol covers elements where a g and b M cancel.  The
+# phase plants faults into the plain version on a slab of the same inputs
+# (M weighted 10% high, one coefficient or the slot weights off, truncation
+# in place of rounding) and checks that each fails this.  On an H100 4.0e-5
+# (exp-sum) and 4.7e-5 (exact) of the elements differ, each by one ulp; the
+# planted faults make 0.50 to 0.99 of them differ.
+BF16_DELTA_TOL = dict(rtol=2.0 ** -7, atol=1e-6, max_share_differing=1e-3)
+# Card vs CPU at f32 (TF32 off): the same arithmetic in other sum orders
+# (~1e-6 relative per step), carried over 12 steps of training.
+CARD_CPU_TOL = dict(rtol=1e-4, atol=1e-6)
+BF16_FLOPS_PER_S = 989e12                   # H100 SXM, dense bf16
+
+
+def llm_leaf_shapes(cfg, agents: int) -> dict:
+    """The dense model's parameter leaves, agent-stacked, in the port's
+    (sorted) leaf order: the order the optimizer launches one kernel per
+    leaf."""
+    d, H, G, hd, ff, L, V = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                             cfg.hd(), cfg.d_ff, cfg.n_layers, cfg.vocab)
+    A = agents
+    shapes = {
+        "blocks/attn/wk/w": (A, L, d, G, hd), "blocks/attn/wo/w": (A, L, H,
+                                                                   hd, d),
+        "blocks/attn/wq/w": (A, L, d, H, hd), "blocks/attn/wv/w": (A, L, d,
+                                                                   G, hd),
+        "blocks/ln1/scale": (A, L, d), "blocks/ln2/scale": (A, L, d),
+        "blocks/mlp/down/w": (A, L, ff, d), "blocks/mlp/gate/w": (A, L, d,
+                                                                  ff),
+        "blocks/mlp/up/w": (A, L, d, ff), "embed/table": (A, V, d),
+        "lm_head/w": (A, d, V), "ln_f/scale": (A, d)}
+    return shapes
+
+
+def trace_kernels(path: str) -> list:
+    """Device kernels of a torch.profiler Chrome trace, in launch order:
+    [(name, start_us, dur_us)]."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    ks = [(e["name"], float(e["ts"]), float(e["dur"])) for e in events
+          if e.get("cat") == "kernel" and "dur" in e]
+    return sorted(ks, key=lambda k: k[1])
+
+
+def window_profile(path: str, n_steps: int, step_ms: list, kernel: str,
+                   leaf_index: int, n_leaves: int) -> dict:
+    """From a profile window's trace: the named FrODO kernel's device time
+    per step and per launch at one leaf (its place in each step's
+    ``n_leaves`` launches), the top device kernels, and the busy share
+    (device kernel time over the window's host-clock step time)."""
+    ks = trace_kernels(path)
+    mine = [d for n, _, d in ks if kernel in n]
+    check(len(mine) == n_steps * n_leaves,
+          f"{kernel}: {len(mine)} launches in a {n_steps}-step profile "
+          f"window, want {n_steps * n_leaves}")
+    per_name: dict = {}
+    for n, _, d in ks:
+        c, t = per_name.get(n, (0, 0.0))
+        per_name[n] = (c + 1, t + d)
+    busy_us = sum(d for _, _, d in ks)
+    top = sorted(per_name.items(), key=lambda kv: -kv[1][1])[:8]
+    return {
+        "kernel_ms_per_step": sum(mine) / n_steps / 1e3,
+        "kernel_ms_at_leaf": statistics.mean(
+            mine[leaf_index::n_leaves]) / 1e3,
+        "device_ms_per_step": busy_us / n_steps / 1e3,
+        "device_busy_share": busy_us / 1e3 / sum(step_ms),
+        "kernels_per_step": len(ks) / n_steps,
+        "top_kernels": [{"name": n[:90], "launches_per_step": c / n_steps,
+                         "ms_per_step": t / n_steps / 1e3}
+                        for n, (c, t) in top]}
+
+
+def llm_train_phase(dev) -> dict:
+    """The LLM trainer on the card: h2o-danube-1.8b at full width with cut
+    depth, FrODO exp-sum memory through the exp-sum kernel on bf16 leaves
+    (20 steps, profiled); the exact-memory sub-run through the exact
+    kernel; kernel vs plain path in both modes; card vs the card machine's
+    CPU at the f32 smoke config; exp-sum with bf16 accumulators; and both
+    kernels against their plain versions at the largest leaves.  Returns
+    the launches of the trainer's paths and the kernels' numbers at the
+    LLM leaves."""
+    import tempfile
+    import time
+
+    import numpy as np
+    import torch
+    from repro_torch import tree as TR
+    from repro_torch.configs import registry as REG
+    from repro_torch.core import memory as fmem
+    from repro_torch.kernels import frodo_update as KU
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.train import run_training
+    from repro_torch.obs.metrics import read_jsonl
+    from repro_torch.training import train_step as TS
+
+    tmp = tempfile.mkdtemp(prefix="llm_train_")
+    runs = [0]
+
+    def train(**kw):
+        """One run_training call on ``kw``'s settings; returns its sink
+        rows, its launches (counted from 0 just before), its seconds, its
+        peak device memory (0 for a run on the CPU) and its profile trace
+        path (or None)."""
+        runs[0] += 1
+        tag = f"run{runs[0]}"
+        prof = kw.pop("profile", None)
+        args = dict(arch=LLM_ARCH, smoke=False, agents=LLM["agents"],
+                    seq=LLM["seq"], batch_per_agent=LLM["batch_per_agent"],
+                    seed=0, device=dev, use_kernel=True,
+                    metrics_out=os.path.join(tmp, f"{tag}.jsonl"))
+        if prof is not None:
+            args.update(profile_dir=os.path.join(tmp, tag),
+                        profile_start=prof[0], profile_stop=prof[1])
+        args.update(kw)
+        on_card = torch.device(args["device"]).type == "cuda"
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        KU.reset_launches()
+        t0 = time.perf_counter()
+        run_training(**args)
+        secs = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated(dev) if on_card else 0
+        rows = read_jsonl(args["metrics_out"])
+        trace = (os.path.join(args["profile_dir"], "trace.json")
+                 if prof is not None else None)
+        return rows, launches, secs, peak, trace
+
+    cfg = REG.get_config(LLM_ARCH).replace(n_layers=LLM["n_layers"])
+    shapes = llm_leaf_shapes(cfg, LLM["agents"])
+    names = list(shapes)
+    n = sum(int(np.prod(s)) for s in shapes.values())
+    n_leaves = len(shapes)
+    up = names.index("blocks/mlp/up/w")
+    tokens = LLM["agents"] * LLM["batch_per_agent"] * LLM["seq"]
+
+    def bound(nbytes):
+        return nbytes / HBM_BYTES_PER_S * 1e3
+
+    # ------------------------------------------------ the main run: exp-sum
+    steps = LLM["steps"]
+    rows, launches, secs, peak, trace = train(
+        n_layers=LLM["n_layers"], memory_mode="expsum", T=LLM["T"],
+        steps=steps, profile=LLM["profile"])
+    check(launches == {"frodo_exact_update": 0,
+                       "frodo_expsum_update": n_leaves * steps},
+          f"exp-sum launches on the LLM path: {launches}")
+    loss = [r["loss"] for r in rows]
+    check(len(loss) == steps and bool(np.isfinite(loss).all()),
+          f"LLM loss not finite: {loss}")
+    check(loss[-1] < loss[0], f"LLM loss did not fall: {loss}")
+    check(peak < 80e9, f"peak device memory {peak}")
+    step_ms = [r["step_time_ms"] for r in rows]
+    ms = statistics.median(step_ms[LLM["timed_from"]:])
+    per_agent = n // LLM["agents"]
+    matmul_params = per_agent - int(np.prod(shapes["embed/table"][1:]))
+    S, B, H, hd = LLM["seq"], LLM["batch_per_agent"], cfg.n_heads, cfg.hd()
+    nblk = S // cfg.attn_chunk
+    computed = (nblk * (nblk + 1) // 2) / nblk ** 2    # causal block skip
+    attn = (3 * 4 * B * S * S * H * hd * computed * cfg.n_layers
+            * LLM["agents"])
+    flops = 6 * matmul_params * tokens + attn
+    p0, p1 = LLM["profile"]
+    prof_main = window_profile(trace, p1 - p0 + 1, step_ms[p0:p1 + 1],
+                               "expsum_update_kernel", up, n_leaves)
+    K = TS.TrainConfig().K
+    main = {
+        "arch": LLM_ARCH, "width": {
+            "d_model": cfg.d_model, "n_heads": cfg.n_heads,
+            "n_kv_heads": cfg.n_kv_heads, "head_dim": cfg.hd(),
+            "d_ff": cfg.d_ff, "vocab": cfg.vocab, "window": cfg.window,
+            "param_dtype": cfg.param_dtype},
+        "n_layers": cfg.n_layers, "reduced": LLM_REDUCED,
+        "agents": LLM["agents"], "seq": S, "batch_per_agent": B,
+        "tokens_per_step": tokens, "params_per_agent": per_agent,
+        "n_total": n, "memory_mode": "expsum", "K": K, "T": LLM["T"],
+        "acc_dtype": "float32", "steps": steps, "seconds": secs,
+        "loss_first": loss[0], "loss_last": loss[-1], "loss": loss,
+        "launches": launches,
+        "ms_per_step": ms, "ms_per_step_steps": [LLM["timed_from"],
+                                                 steps - 1],
+        "tokens_per_s": tokens / (ms / 1e3),
+        "model_flops_per_step": flops,
+        "model_flops_share_of_bf16_peak": flops / (ms / 1e3)
+        / BF16_FLOPS_PER_S,
+        "peak_memory_bytes": peak, "profile_steps": [p0, p1],
+        "profile": prof_main,
+        "expsum_bound_ms_per_step": bound(68 * n),
+        "expsum_bound_ms_at_up": bound(68 * int(np.prod(shapes[
+            "blocks/mlp/up/w"])))}
+    emit("llm_train", **main)
+
+    # ---------------------------------------------- exact memory (default)
+    ex = LLM_EXACT
+    cfg_x = cfg.replace(n_layers=ex["n_layers"])
+    shapes_x = llm_leaf_shapes(cfg_x, LLM["agents"])
+    n_x = sum(int(np.prod(s)) for s in shapes_x.values())
+    rows, launches_x, secs, peak_x, trace = train(
+        n_layers=ex["n_layers"], memory_mode="exact", T=ex["T"],
+        steps=ex["steps"], profile=ex["profile"])
+    check(launches_x == {"frodo_exact_update": n_leaves * ex["steps"],
+                         "frodo_expsum_update": 0},
+          f"exact launches on the LLM path: {launches_x}")
+    loss_x = [r["loss"] for r in rows]
+    check(bool(np.isfinite(loss_x).all()), f"exact loss: {loss_x}")
+    step_ms = [r["step_time_ms"] for r in rows]
+    q0, q1 = ex["profile"]
+    emb = list(shapes_x).index("embed/table")
+    n_emb = int(np.prod(shapes_x["embed/table"]))
+    exact = {
+        "n_layers": ex["n_layers"], "T": ex["T"], "steps": ex["steps"],
+        "n_total": n_x, "seconds": secs, "loss": loss_x,
+        "launches": launches_x,
+        "ms_per_step": statistics.median(step_ms[1:q0]),
+        "ms_per_step_steps": [1, q0 - 1], "peak_memory_bytes": peak_x,
+        "profile_steps": [q0, q1],
+        "profile": window_profile(trace, q1 - q0 + 1, step_ms[q0:q1 + 1],
+                                  "exact_update_kernel", emb, n_leaves),
+        "exact_bound_ms_per_step": bound((ex["T"] + 3) * n_x * 2),
+        "exact_bound_ms_at_embed": bound((ex["T"] + 3) * n_emb * 2)}
+
+    # ------------------------------------- kernel vs plain, both memory modes
+    def vs_loss(mode, T_, **kw):
+        rows, *_ = train(n_layers=LLM_VS_PLAIN["n_layers"],
+                         seq=LLM_VS_PLAIN["seq"], memory_mode=mode, T=T_,
+                         steps=LLM_VS_PLAIN["steps"], **kw)
+        return [r["loss"] for r in rows]
+
+    vs = {}
+    for mode, T_ in (("exact", LLM_EXACT["T"]), ("expsum", LLM["T"])):
+        kern = vs_loss(mode, T_, use_kernel=True)
+        plain = vs_loss(mode, T_, use_kernel=False)
+        ok, err = close_np(kern, plain, LLM_LOSS_TOL)
+        check(ok, f"LLM {mode}: kernel vs plain loss {kern} {plain}")
+        planted = {}
+        for name, kw in LLM_PLANTED.items():
+            passes, e = close_np(kern, vs_loss(mode, T_, use_kernel=False,
+                                               **kw), LLM_LOSS_TOL)
+            check(not passes, f"LLM {mode}: planted fault {name} passes the "
+                  f"loss check ({e})")
+            planted[name] = {"max_abs_err": e}
+        vs[mode] = {"loss_kernel": kern, "loss_plain": plain,
+                    "max_abs_err": err, "planted_faults": planted}
+
+    # ----------------------------------------- card vs CPU, f32 smoke config
+    smoke = REG.get_smoke_config(LLM_ARCH).replace(
+        param_dtype="float32", compute_dtype="float32")
+    init = TS.init_train_state(torch.Generator().manual_seed(0), smoke,
+                               TS.TrainConfig(), LLM["agents"]).params
+    init_np = TR.tree_map(lambda t: t.numpy(), init)
+    card_cpu = {}
+    for where in (dev, "cpu"):
+        rows, *_ = train(smoke=True, seq=128, param_dtype="float32",
+                         steps=LLM_CARD_CPU["steps"], device=where,
+                         init_fn=lambda seed: init_np)
+        card_cpu["cpu" if where == "cpu" else "card"] = {
+            k: [r[k] for r in rows] for k in ("loss", "grad_norm")}
+    cc = {}
+    for k in ("loss", "grad_norm"):
+        ok, err = close_np(card_cpu["card"][k], card_cpu["cpu"][k],
+                           CARD_CPU_TOL)
+        check(ok, f"LLM smoke f32 {k}, card vs CPU: {card_cpu}")
+        cc[k] = err
+
+    # ------------------------------------------ exp-sum, bf16 accumulators
+    bf = LLM_BF16_ACC
+    rows, launches_b, secs, peak_b, trace = train(
+        n_layers=bf["n_layers"], memory_mode="expsum", T=LLM["T"],
+        acc_dtype="bfloat16", steps=bf["steps"], profile=bf["profile"])
+    check(launches_b == {"frodo_exact_update": 0,
+                         "frodo_expsum_update": n_leaves * bf["steps"]},
+          f"exp-sum (bf16 acc) launches: {launches_b}")
+    loss_b = [r["loss"] for r in rows]
+    check(bool(np.isfinite(loss_b).all()), f"bf16-acc loss: {loss_b}")
+    step_ms = [r["step_time_ms"] for r in rows]
+    b0, b1 = bf["profile"]
+    bf16acc = {
+        "steps": bf["steps"], "loss": loss_b, "launches": launches_b,
+        "seconds": secs, "peak_memory_bytes": peak_b,
+        "ms_per_step": statistics.median(step_ms[1:b0]),
+        "ms_per_step_steps": [1, b0 - 1],
+        "profile_steps": [b0, b1],
+        "profile": window_profile(trace, b1 - b0 + 1, step_ms[b0:b1 + 1],
+                                  "expsum_update_kernel", up, n_leaves),
+        "expsum_bound_ms_per_step": bound(36 * n),
+        "expsum_bound_ms_at_up": bound(36 * int(np.prod(shapes[
+            "blocks/mlp/up/w"])))}
+    emit("llm_train.sub_runs", exact=exact, kernel_vs_plain=vs,
+         kernel_vs_plain_tol=LLM_LOSS_TOL, card_vs_cpu_max_abs_err=cc,
+         card_vs_cpu_tol=CARD_CPU_TOL, card_vs_cpu=card_cpu,
+         card_vs_cpu_steps=LLM_CARD_CPU["steps"], expsum_bf16_acc=bf16acc)
+
+    # ------------------------- both kernels at the largest leaves, > 2^31
+    gen = torch.Generator(device=dev).manual_seed(7)
+
+    def bf16_diff(a, b) -> dict:
+        """A bf16 delta against its plain version under BF16_DELTA_TOL, one
+        slice of the leading dim at a time (keeps the f32 temporaries
+        small): the largest |a - b|, the elements past rtol/atol, the share
+        of elements that differ at all, and whether that passes."""
+        tol = BF16_DELTA_TOL
+        worst, n_past, n_diff = 0.0, 0, 0
+        for i in range(a.shape[0]):
+            x, y = a[i].float(), b[i].float()
+            e = (x - y).abs()
+            n_past += int((e > tol["atol"] + tol["rtol"] * y.abs()).sum())
+            n_diff += int((e > 0).sum())
+            worst = max(worst, float(e.max()))
+        share = n_diff / a.numel()
+        return {"max_abs_err": worst, "elements_past_tol": n_past,
+                "share_differing": share,
+                "passes": n_past == 0 and share <= tol["max_share_differing"]}
+
+    def truncated(d32):
+        """An f32 delta cut to bf16 by truncation instead of rounding."""
+        return (d32.view(torch.int32) & -65536).view(torch.float32).to(
+            torch.bfloat16)
+
+    def planted(faults: dict, d_ref) -> dict:
+        """Each planted fault's delta on a slab against the plain delta
+        ``d_ref`` of the same slab: each must fail BF16_DELTA_TOL."""
+        out = {}
+        for name, d in faults.items():
+            r = bf16_diff(d[None], d_ref[None])
+            check(not r["passes"], f"planted fault {name} passes the bf16 "
+                  f"delta check: {r}")
+            out[name] = {k: r[k] for k in ("max_abs_err", "elements_past_tol",
+                                           "share_differing")}
+        return out
+
+    def bit_equal(a, b) -> bool:
+        view = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+        return all(torch.equal(x.view(view), y.view(view))
+                   for x, y in zip(a, b))
+
+    up_shape = shapes["blocks/mlp/up/w"]
+    g = torch.randn(up_shape, generator=gen, device=dev).to(torch.bfloat16)
+    acc = torch.randn((K,) + up_shape, generator=gen, device=dev)
+    rates_np, coeffs_np = fmem.fit_expsum(LLM["T"], 0.15, K)
+    rates = torch.tensor(rates_np, dtype=torch.float32)
+    coeffs = torch.tensor(coeffs_np, dtype=torch.float32)
+    g_s, acc_s = g[0, 0], acc[:, 0, 0].clone()   # a slab, before the update
+    a_k = acc.clone()
+    d_k = KU.expsum_update(g, a_k, rates, coeffs, 0.02, 0.008)
+    d_p, a_p = ref.frodo_expsum_update_ref(g, acc, rates, coeffs, 0.02,
+                                           0.008)
+    torch.cuda.synchronize(dev)
+    d_err = bf16_diff(d_k, d_p)
+    check(d_err["passes"], f"exp-sum delta at blocks/mlp/up/w: {d_err}")
+    check(bit_equal(a_k, a_p), "exp-sum new accumulators at "
+          "blocks/mlp/up/w not bit-equal")
+    c0 = coeffs.clone()
+    c0[0] *= 1.1
+    es_big = {"shape": [K] + list(up_shape), "elements": acc.numel(),
+              "delta_max_abs_err": d_err["max_abs_err"],
+              "delta_share_differing": d_err["share_differing"],
+              "new_acc": "bit-equal",
+              "planted_faults_on_slab": planted({
+                  "beta_M_x1.1": ref.frodo_expsum_update_ref(
+                      g_s, acc_s.clone(), rates, coeffs, 0.02, 0.0088)[0],
+                  "c0_x1.1": ref.frodo_expsum_update_ref(
+                      g_s, acc_s.clone(), rates, c0, 0.02, 0.008)[0],
+                  "truncation": truncated(ref.frodo_expsum_update_ref(
+                      g_s.float(), acc_s.clone(), rates, coeffs, 0.02,
+                      0.008)[0])}, d_p[0, 0])}
+    del a_k, d_k, d_p, a_p, acc_s
+    es_big.update(
+        ms=cuda_ms(lambda: KU.expsum_update(g, acc, rates, coeffs, 0.02,
+                                            0.008), reps=10),
+        plain_ms=cuda_ms(lambda: ref.frodo_expsum_update_ref(
+            g, acc, rates, coeffs, 0.02, 0.008), reps=3, warmup=1),
+        bound_ms=bound(68 * g.numel()), bound_by="bytes", library_ms=None)
+    del g, acc
+
+    T_x = LLM_EXACT["T"]
+    emb_shape = shapes_x["embed/table"]
+    g = torch.randn(emb_shape, generator=gen, device=dev).to(torch.bfloat16)
+    hist = torch.randn((T_x,) + emb_shape, generator=gen,
+                       device=dev).to(torch.bfloat16)
+    mu = torch.tensor(fmem.mu_weights(T_x, 0.15), dtype=torch.float32,
+                      device=dev)
+    cursor = T_x - 1                           # the push at the top slot
+    g_s, h_s = g[0, :4000], hist[:, 0, :4000].clone()
+    h_k = hist.clone()
+    d_k = KU.exact_update(g, h_k, cursor, mu, 0.02, 0.008)
+    d_p, h_p = ref.frodo_update_ref(g, hist, cursor, mu, 0.02, 0.008)
+    torch.cuda.synchronize(dev)
+    d_err = bf16_diff(d_k, d_p)
+    check(d_err["passes"], f"exact delta at embed/table: {d_err}")
+    check(bit_equal(h_k, h_p), "exact pushed history at embed/table not "
+          "bit-equal")
+    ex_big = {"shape": [T_x] + list(emb_shape), "elements": hist.numel(),
+              "delta_max_abs_err": d_err["max_abs_err"],
+              "delta_share_differing": d_err["share_differing"],
+              "pushed_history": "bit-equal",
+              "planted_faults_on_slab": planted({
+                  "beta_M_x1.1": ref.frodo_update_ref(
+                      g_s, h_s.clone(), cursor, mu, 0.02, 0.0088)[0],
+                  "slot_weights_off_by_one": ref.frodo_update_ref(
+                      g_s, h_s.clone(), cursor - 1, mu, 0.02, 0.008)[0],
+                  "truncation": truncated(ref.frodo_update_ref(
+                      g_s.float(), h_s.clone(), cursor, mu, 0.02,
+                      0.008)[0])}, d_p[0, :4000])}
+    del h_k, d_k, d_p, h_p, h_s
+    w_slot = fmem.slot_weights(mu, cursor).to(torch.bfloat16)
+    ex_big.update(
+        ms=cuda_ms(lambda: KU.exact_update(g, hist, cursor, mu, 0.02, 0.008),
+                   reps=10),
+        plain_ms=cuda_ms(lambda: ref.frodo_update_ref(
+            g, hist, cursor, mu, 0.02, 0.008), reps=3, warmup=1),
+        library_ms=cuda_ms(lambda: torch.addmv(
+            g.view(-1), hist.view(T_x, -1).t(), w_slot, beta=-0.02,
+            alpha=-0.008), reps=10),
+        bound_ms=bound((T_x + 3) * g.numel() * 2 + T_x * 4),
+        bound_by="bytes")
+    del g, hist
+    torch.cuda.empty_cache()
+    emit("llm_train.kernels", nvidia_smi=nvidia_smi(),
+         expsum_bf16g_f32acc_at_mlp_up=es_big, exact_bf16_at_embed=ex_big,
+         tol={"delta": BF16_DELTA_TOL, "new_acc": "bit-equal",
+              "pushed_history": "bit-equal"},
+         note="kernel vs plain version on one full leaf each, past 2^31 "
+              "elements of state; planted faults in the plain version on a "
+              "slab of the same inputs, each failing the delta check; ms by "
+              "CUDA events around one wrapper "
+              "call; the library call is torch.addmv (exact; no one "
+              "PyTorch call does the exp-sum update)")
+    return {"launches": {"llm_train": launches,
+                         "llm_train_exact": launches_x,
+                         "llm_train_expsum_bf16acc": launches_b},
+            "expsum": dict(
+                es_big, device_ms_at_up=prof_main["kernel_ms_at_leaf"],
+                device_ms_per_step=prof_main["kernel_ms_per_step"],
+                bound_ms_per_step=main["expsum_bound_ms_per_step"],
+                bf16acc_device_ms_at_up=bf16acc["profile"][
+                    "kernel_ms_at_leaf"],
+                bf16acc_bound_ms_at_up=bf16acc["expsum_bound_ms_at_up"],
+                bf16acc_device_ms_per_step=bf16acc["profile"][
+                    "kernel_ms_per_step"],
+                bf16acc_bound_ms_per_step=bf16acc[
+                    "expsum_bound_ms_per_step"]),
+            "exact": dict(
+                ex_big, device_ms_at_embed=exact["profile"][
+                    "kernel_ms_at_leaf"],
+                device_ms_per_step=exact["profile"]["kernel_ms_per_step"],
+                bound_ms_per_step=exact["exact_bound_ms_per_step"])}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -644,9 +1149,11 @@ def main() -> int:
     faults_phase(dev)
     launches_exp1 = exp1_phase(dev)
     launches_exp3 = exp3_phase(dev)
+    llm = llm_train_phase(dev)
     per_path = {name: {"exp2": launches_exp2[name],
                        "exp1_point": launches_exp1[name],
-                       "exp3": launches_exp3[name]}
+                       "exp3": launches_exp3[name],
+                       **{p: c[name] for p, c in llm["launches"].items()}}
                 for name in ("frodo_exact_update", "frodo_expsum_update")}
 
     # ----------------------------------------------------------- timing
@@ -818,14 +1325,15 @@ def main() -> int:
          "launches_per_path": per_path["frodo_exact_update"],
          "max_abs_err": exact_err["float32"],
          "shape": [T] + list(EXP2_LEAVES["w0"]), "dtype": "float32",
-         **{k: ex[k] for k in keys}},
+         **{k: ex[k] for k in keys}, "llm_bf16_at_embed": llm["exact"]},
         {"name": "frodo_expsum_update", "route": "cuda", "source": src,
          "replaces": "src/repro/kernels/frodo_update.py:93",
          "launches": sum(per_path["frodo_expsum_update"].values()),
          "launches_per_path": per_path["frodo_expsum_update"],
          "max_abs_err": max(expsum_err["g=float32,acc=float32"].values()),
          "shape": [K] + list(EXP2_LEAVES["w0"]), "dtype": "float32",
-         **{k: es["float32"][k] for k in keys}},
+         **{k: es["float32"][k] for k in keys},
+         "llm_bf16g_f32acc_at_mlp_up": llm["expsum"]},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -19,6 +19,7 @@ import torch
 
 from repro_torch import tree as TR
 from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs.timing import trace_scope
 
 Tree = Any
 
@@ -39,17 +40,21 @@ def mix_stacked(x: Tree, W, with_metrics: bool = False):
     after mixing (the Thm 2.1 Lyapunov quantity).
     """
     if isinstance(W, np.ndarray) and is_uniform_complete(W):
+        scope = "consensus.mix_uniform"
+
         def leaf(v):
             m = torch.mean(v.float(), dim=0, keepdim=True).to(v.dtype)
             return m.expand_as(v).contiguous()
     else:
+        scope = "consensus.mix_general"
         Wt = torch.as_tensor(W, dtype=torch.float32,
                              device=TR.leaves(x)[0].device)
 
         def leaf(v):
             o = torch.einsum("ab,b...->a...", Wt, v.float())
             return o.to(v.dtype)
-    out = TR.tree_map(leaf, x)
+    with trace_scope(scope):
+        out = TR.tree_map(leaf, x)
     if not with_metrics:
         return out
     aux = {"consensus_error_pre": obs_metrics.consensus_error(x),
@@ -70,7 +75,8 @@ def mix_time_varying(x: Tree, W_seq, step: int, with_metrics: bool = False):
     does, even where W_t is 11^T/A."""
     W_t = torch.as_tensor(W_seq[step % W_seq.shape[0]], dtype=torch.float32,
                           device=TR.leaves(x)[0].device)
-    return mix_stacked(x, W_t, with_metrics=with_metrics)
+    with trace_scope("consensus.mix_time_varying"):
+        return mix_stacked(x, W_t, with_metrics=with_metrics)
 
 
 def mix_hierarchical(x: Tree, W_intra: np.ndarray, W_pod: np.ndarray,
@@ -102,4 +108,5 @@ def mix_hierarchical(x: Tree, W_intra: np.ndarray, W_pod: np.ndarray,
                 u = torch.einsum("qp,pd...->qd...", Wp, u)
         return u.reshape(v.shape).to(v.dtype)
 
-    return TR.tree_map(leaf, x)
+    with trace_scope("consensus.mix_hierarchical"):
+        return TR.tree_map(leaf, x)

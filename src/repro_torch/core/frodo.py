@@ -116,7 +116,7 @@ def _frodo_exact(cfg: FrodoConfig) -> Optimizer:
         flat_g, treedef = TR.flatten(grads)
         flat_h = TR.leaves(state["hist"])
         wts = weights.on(flat_g[0].device)
-        deltas, hists, Ms = [], [], []
+        deltas, hists, M_sq = [], [], []
         for g, h in zip(flat_g, flat_h):
             if cfg.use_kernel:
                 # the kernel fuses M into the update and pushes g in place:
@@ -130,13 +130,14 @@ def _frodo_exact(cfg: FrodoConfig) -> Optimizer:
                 h = fmem.exact_push(h, cursor, g)
             deltas.append(delta)
             hists.append(h)
-            Ms.append(M)
+            if collect:         # keep ||M||^2, not M: M is f32, n long
+                M_sq.append(obs_metrics.tree_sq_sum(M))
         delta = TR.unflatten(treedef, deltas)
         new_state = {"step": state["step"] + 1,
                      "hist": TR.unflatten(treedef, hists)}
         if collect:
-            new_state["metrics"] = obs_metrics.frodo_step_metrics(
-                grads, TR.unflatten(treedef, Ms), delta)
+            new_state["metrics"] = obs_metrics.frodo_step_metrics_sq(
+                grads, M_sq, delta)
         return delta, new_state
 
     return Optimizer(init, update)
@@ -161,7 +162,7 @@ def _frodo_expsum(cfg: FrodoConfig) -> Optimizer:
         flat_g, treedef = TR.flatten(grads)
         flat_a = TR.leaves(state["acc"])
         dev = flat_g[0].device
-        deltas, accs, Ms = [], [], []
+        deltas, accs, M_sq = [], [], []
         for g, a in zip(flat_g, flat_a):
             if cfg.use_kernel:
                 M = (fmem.expsum_memory_term(a, coeffs.on(dev)) if collect
@@ -175,13 +176,14 @@ def _frodo_expsum(cfg: FrodoConfig) -> Optimizer:
                 a = fmem.expsum_push(a, rates.on(dev), g)
             deltas.append(delta)
             accs.append(a)
-            Ms.append(M)
+            if collect:         # keep ||M||^2, not M: M is f32, n long
+                M_sq.append(obs_metrics.tree_sq_sum(M))
         delta = TR.unflatten(treedef, deltas)
         new_state = {"step": state["step"] + 1,
                      "acc": TR.unflatten(treedef, accs)}
         if collect:
-            new_state["metrics"] = obs_metrics.frodo_step_metrics(
-                grads, TR.unflatten(treedef, Ms), delta)
+            new_state["metrics"] = obs_metrics.frodo_step_metrics_sq(
+                grads, M_sq, delta)
         return delta, new_state
 
     return Optimizer(init, update)

@@ -17,6 +17,7 @@ import torch
 
 from repro_torch.core import consensus
 from repro_torch.core.frodo import Optimizer, apply_updates
+from repro_torch.obs.spans import span
 
 
 def _grads(objective, xs: torch.Tensor) -> torch.Tensor:
@@ -48,7 +49,37 @@ def run(objective: Callable[[torch.Tensor, int], torch.Tensor],
     memory and takes a zero update for the round.  The result then also
     carries the schedule's fault counter trajectories (``faults_*``, cycled
     to K rounds).  ``collect_metrics=True`` adds per-round
-    ``consensus_error`` / ``consensus_error_pre_mix`` in either mode."""
+    ``consensus_error`` / ``consensus_error_pre_mix`` in either mode.
+
+    With a span recorder installed, the run records ``loop.run`` with its
+    rounds in ``loop.run/loop.execute`` (ending in a device sync) and the
+    copy of the traces to the host in ``loop.run/loop.drain``."""
+    with span("loop.run", agents=int(x0.shape[0]), rounds=int(K)):
+        sp = span("loop.execute")
+        with sp:
+            # sync() is a no-op without a recorder; with one, the wait for
+            # the rounds lands inside loop.execute, not loop.drain
+            outs = sp.sync(_rounds(objective, x0, opt, W, K, x_star, faults,
+                                   collect_metrics))
+        with span("loop.drain"):
+            xs, errs, fvals, pre, post = outs
+            result = {"x": xs,
+                      "errors": torch.stack(errs).cpu().numpy(),
+                      "f": torch.stack(fvals).detach().cpu().numpy()}
+            if collect_metrics:
+                result["consensus_error_pre_mix"] = \
+                    torch.stack(pre).cpu().numpy()
+                result["consensus_error"] = torch.stack(post).cpu().numpy()
+            if faults is not None:
+                idx = np.arange(K) % faults.n_steps
+                result.update({k: v[idx]
+                               for k, v in faults.counter_arrays().items()})
+    return result
+
+
+def _rounds(objective, x0, opt, W, K, x_star, faults, collect_metrics):
+    """The K rounds; returns the final states and the per-round tensors
+    (errors, objective values, pre/post-mix consensus errors)."""
     N = x0.shape[0]
     dev = x0.device
     xs = x0
@@ -91,17 +122,7 @@ def run(objective: Callable[[torch.Tensor, int], torch.Tensor],
                 else torch.zeros((), device=dev))
             xbar = xs.mean(dim=0)
             fvals.append(sum(objective(xbar, i) for i in range(N)))
-    result = {"x": xs,
-              "errors": torch.stack(errs).cpu().numpy(),
-              "f": torch.stack(fvals).detach().cpu().numpy()}
-    if collect_metrics:
-        result["consensus_error_pre_mix"] = torch.stack(pre).cpu().numpy()
-        result["consensus_error"] = torch.stack(post).cpu().numpy()
-    if faults is not None:
-        idx = np.arange(K) % faults.n_steps
-        result.update({k: v[idx]
-                       for k, v in faults.counter_arrays().items()})
-    return result
+    return xs, errs, fvals, pre, post
 
 
 def iterations_to_tol(errors: np.ndarray, tol: float = 1e-6) -> int:

@@ -2,7 +2,9 @@
 
 A tensor on the CPU takes the plain version (``kernels.ref``); a tensor on a
 CUDA device takes the hand-written kernel (``kernels.frodo_update``), which
-launches or raises.  There is no fallback from one to the other.
+launches or raises.  There is no fallback from one to the other.  Each op
+carries the JAX package's scope name (``pallas.frodo_exact_update``,
+``pallas.frodo_expsum_update``) as a ``trace_scope``.
 
 Both ops update their state argument IN PLACE and return it.
 """
@@ -12,6 +14,7 @@ import torch
 
 from repro_torch.kernels import frodo_update as K
 from repro_torch.kernels import ref
+from repro_torch.obs.timing import trace_scope
 
 LAUNCHES = K.LAUNCHES
 
@@ -21,10 +24,13 @@ def frodo_update(g: torch.Tensor, hist: torch.Tensor, cursor: int,
     """Fused exact-memory update.  g: (...); hist: (T, ...); weights: (T,)
     unrotated mu; ``cursor`` the slot g is pushed into.  Returns
     ``(delta, hist)`` with ``hist[cursor] = g`` written in place."""
-    if g.device.type == "cpu":
-        return ref.frodo_update_ref(g, hist, cursor, weights, alpha, beta)
-    if g.device.type == "cuda":
-        return K.exact_update(g, hist, cursor, weights, alpha, beta), hist
+    with trace_scope("pallas.frodo_exact_update"):
+        if g.device.type == "cpu":
+            return ref.frodo_update_ref(g, hist, cursor, weights, alpha,
+                                        beta)
+        if g.device.type == "cuda":
+            return K.exact_update(g, hist, cursor, weights, alpha,
+                                  beta), hist
     raise ValueError(f"frodo_update: unsupported device {g.device}")
 
 
@@ -34,8 +40,10 @@ def frodo_expsum_update(g: torch.Tensor, acc: torch.Tensor,
     """Fused exp-sum update.  acc: (K, ...); rates, coeffs: (K,) host
     tensors.  Returns ``(delta, acc)`` with the accumulators advanced in
     place (which saves the K·n of a second buffer)."""
-    if g.device.type == "cpu":
-        return ref.frodo_expsum_update_ref(g, acc, rates, coeffs, alpha, beta)
-    if g.device.type == "cuda":
-        return K.expsum_update(g, acc, rates, coeffs, alpha, beta), acc
+    with trace_scope("pallas.frodo_expsum_update"):
+        if g.device.type == "cpu":
+            return ref.frodo_expsum_update_ref(g, acc, rates, coeffs, alpha,
+                                               beta)
+        if g.device.type == "cuda":
+            return K.expsum_update(g, acc, rates, coeffs, alpha, beta), acc
     raise ValueError(f"frodo_expsum_update: unsupported device {g.device}")

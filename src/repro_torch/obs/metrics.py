@@ -14,7 +14,8 @@ import json
 import logging
 import os
 import threading
-from typing import Any, Dict, Iterable, List, Protocol, runtime_checkable
+from typing import (Any, Dict, Iterable, List, Protocol, Sequence,
+                    runtime_checkable)
 
 import numpy as np
 import torch
@@ -169,9 +170,20 @@ def consensus_error(tree: Tree) -> torch.Tensor:
 def frodo_step_metrics(grads: Tree, memory_terms: Tree,
                        delta: Tree) -> Dict[str, torch.Tensor]:
     """The per-update scalar pack the optimizer attaches to its state."""
+    return frodo_step_metrics_sq(
+        grads, [tree_sq_sum(m) for m in T.leaves(memory_terms)], delta)
+
+
+def frodo_step_metrics_sq(grads: Tree, memory_sq: Sequence[torch.Tensor],
+                          delta: Tree) -> Dict[str, torch.Tensor]:
+    """``frodo_step_metrics`` from the memory terms' per-leaf squared norms,
+    in leaf order (the same sum, so the same value): the optimizer keeps
+    these instead of the f32 memory terms themselves."""
+    memory_sq = list(memory_sq)
     return {
         "grad_norm": global_norm(grads),
-        "memory_norm": global_norm(memory_terms),
+        "memory_norm": torch.sqrt(sum(memory_sq) if memory_sq else
+                                  torch.zeros((), dtype=torch.float32)),
         "update_norm": global_norm(delta),
     }
 

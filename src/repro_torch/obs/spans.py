@@ -1,0 +1,337 @@
+"""Hierarchical host-side span profiler: per-phase time breakdown.
+
+A copy of the JAX package's ``repro.obs.spans``; the device sync is
+``torch.cuda.synchronize``.
+
+``span(name)`` marks one host-side phase of a training or experiment
+loop.  With a :class:`SpanRecorder` installed (``with SpanRecorder() as
+rec:`` or ``set_recorder``), entering/leaving the context pushes/pops a
+thread-local stack and appends one :class:`Span` row with monotonic-clock
+timestamps (``time.perf_counter_ns``).  With **no** recorder installed —
+the default — ``span()`` returns a shared no-op singleton: nothing is
+allocated beyond the call itself, nothing is recorded.  Spans are pure
+host instrumentation: the work a step launches on the device is the same
+with a recorder installed.
+
+``span(name, block=True)`` syncs the device before the span closes, so
+the span times the work rather than the async launch.  It is opt-in
+because the sync itself perturbs pipelining — only wrap regions whose
+caller accepts that.  The yielded handle additionally offers
+``sync(tree)`` to wait for the device *inside* the span (``loop.run`` does,
+where it reads the rounds' results anyway).
+
+Downstream consumers:
+
+* :func:`aggregate` — per-path stats (count, total/self ms, p50/p95,
+  %-of-parent, %-of-root) behind ``python -m repro_torch.obs.report``.
+* :func:`to_chrome_trace` — Chrome trace-event JSON ("X" complete events)
+  loadable in Perfetto / ``chrome://tracing``; ``SpanRecorder.save``
+  writes it to disk.
+* :func:`to_records` — flat JSONL-able dicts (``name="span"``) so span
+  dumps ride the same ``MetricsSink``/JSONL pipeline as step telemetry
+  (``repro_torch.obs.report`` aggregates them back).
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import threading
+import time
+from typing import Any, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+__all__ = [
+    "Span", "SpanRecorder", "PhaseStat", "span", "set_recorder",
+    "get_recorder", "aggregate", "span_paths", "to_chrome_trace",
+    "to_records", "device_sync",
+]
+
+
+@dataclasses.dataclass
+class Span:
+    """One recorded host-side interval.  Times are ns relative to the
+    recorder's epoch; ``parent`` indexes into the recorder's span list
+    (-1 for roots); ``dur_ns`` is -1 while the span is still open."""
+    name: str
+    start_ns: int
+    dur_ns: int
+    depth: int
+    parent: int
+    tid: int
+    args: Optional[Dict[str, Any]] = None
+
+
+def device_sync() -> None:
+    """Wait for outstanding device work (used by ``span(..., block=True)``):
+    ``torch.cuda.synchronize()`` once CUDA is initialised, else nothing
+    (CPU work is done when the call returns)."""
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+
+
+class SpanRecorder:
+    """Collects spans; also a context manager that installs itself as the
+    process recorder and restores the previous one on exit.
+
+    The span *stack* (nesting) is thread-local, so worker threads get
+    correct parent/depth attribution; the span list itself is append-only
+    (atomic under the GIL).
+    """
+
+    def __init__(self) -> None:
+        self.spans: List[Span] = []
+        self._t0 = time.perf_counter_ns()
+        self._local = threading.local()
+        self._prev: Optional[SpanRecorder] = None
+        self._installed = False
+
+    # ------------------------------------------------------------ recording
+
+    def _stack(self) -> List[int]:
+        st = getattr(self._local, "stack", None)
+        if st is None:
+            st = self._local.stack = []
+        return st
+
+    def begin(self, name: str, args: Optional[Dict[str, Any]] = None) -> int:
+        st = self._stack()
+        idx = len(self.spans)
+        self.spans.append(Span(
+            name=name, start_ns=time.perf_counter_ns() - self._t0,
+            dur_ns=-1, depth=len(st), parent=st[-1] if st else -1,
+            tid=threading.get_ident(), args=args))
+        st.append(idx)
+        return idx
+
+    def end(self, idx: int) -> None:
+        now = time.perf_counter_ns() - self._t0
+        sp = self.spans[idx]
+        sp.dur_ns = now - sp.start_ns
+        st = self._stack()
+        # pop to (and including) idx; tolerates a child left open by a
+        # non-context-manager caller rather than corrupting the stack
+        while st:
+            top = st.pop()
+            if top == idx:
+                break
+            open_child = self.spans[top]
+            if open_child.dur_ns < 0:
+                open_child.dur_ns = now - open_child.start_ns
+
+    # ----------------------------------------------------------- installers
+
+    def __enter__(self) -> "SpanRecorder":
+        self._prev = set_recorder(self)
+        self._installed = True
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self._installed:
+            set_recorder(self._prev)
+            self._installed = False
+
+    # -------------------------------------------------------------- exports
+
+    def aggregate(self) -> Dict[str, "PhaseStat"]:
+        return aggregate(self.spans)
+
+    def to_chrome_trace(self, process_name: str = "repro_torch"
+                        ) -> Dict[str, Any]:
+        return to_chrome_trace(self.spans, process_name=process_name)
+
+    def to_records(self) -> List[Dict[str, Any]]:
+        return to_records(self.spans)
+
+    def save(self, path: str, process_name: str = "repro_torch") -> str:
+        """Write the Chrome trace-event JSON (open in Perfetto)."""
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        with open(path, "w") as f:
+            json.dump(self.to_chrome_trace(process_name), f)
+        return path
+
+
+# ------------------------------------------------------- process recorder
+
+_RECORDER: Optional[SpanRecorder] = None
+
+
+def set_recorder(rec: Optional[SpanRecorder]) -> Optional[SpanRecorder]:
+    """Install the process span recorder (None disables); returns the
+    previous one."""
+    global _RECORDER
+    prev = _RECORDER
+    _RECORDER = rec
+    return prev
+
+
+def get_recorder() -> Optional[SpanRecorder]:
+    return _RECORDER
+
+
+class _NoopSpan:
+    """Shared do-nothing span handle — the disabled path allocates nothing
+    and is safe to nest/reuse (it carries no state)."""
+    __slots__ = ()
+
+    def __enter__(self) -> "_NoopSpan":
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+    def sync(self, tree: Any) -> Any:
+        return tree
+
+
+_NOOP = _NoopSpan()
+
+
+class _LiveSpan:
+    __slots__ = ("_rec", "_name", "_block", "_args", "_idx")
+
+    def __init__(self, rec: SpanRecorder, name: str, block: bool,
+                 args: Optional[Dict[str, Any]]) -> None:
+        self._rec = rec
+        self._name = name
+        self._block = block
+        self._args = args
+        self._idx = -1
+
+    def __enter__(self) -> "_LiveSpan":
+        self._idx = self._rec.begin(self._name, self._args)
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        if self._block:
+            device_sync()
+        self._rec.end(self._idx)
+        return False
+
+    def sync(self, tree: Any) -> Any:
+        """Wait for the device so the wait lands inside this span; returns
+        ``tree``."""
+        device_sync()
+        return tree
+
+
+def span(name: str, block: bool = False, **args: Any):
+    """Context manager marking one host-side phase.
+
+    No-op (shared singleton, nothing recorded) unless a recorder is
+    installed.  ``block=True`` device-syncs at close; ``**args`` become
+    the span's Chrome-trace args (e.g. ``step=i``).
+    """
+    rec = _RECORDER
+    if rec is None:
+        return _NOOP
+    return _LiveSpan(rec, name, block, args or None)
+
+
+# ------------------------------------------------------------- aggregation
+
+@dataclasses.dataclass
+class PhaseStat:
+    """Aggregate of every span sharing one path (parent-chain of names)."""
+    path: str
+    name: str
+    depth: int
+    count: int
+    total_ms: float
+    self_ms: float          # total minus direct children (same units)
+    p50_ms: float
+    p95_ms: float
+    pct_of_parent: float    # total / parent-path total (1.0 at roots)
+    pct_of_root: float      # total / root-ancestor total
+
+
+def span_paths(spans: Sequence[Span]) -> List[str]:
+    """Slash-joined ancestry path per span, e.g. ``serve.step/serve.decode``.
+    Requires parents to precede children (the recorder's append order)."""
+    paths: List[str] = []
+    for sp in spans:
+        if 0 <= sp.parent < len(paths):
+            paths.append(paths[sp.parent] + "/" + sp.name)
+        else:
+            paths.append(sp.name)
+    return paths
+
+
+def aggregate(spans: Sequence[Span]) -> Dict[str, PhaseStat]:
+    """Per-path stats.  ``self_ms`` is total minus the summed durations of
+    *direct* children, so for every path::
+
+        total_ms == self_ms + sum(child.total_ms for direct children)
+    """
+    paths = span_paths(spans)
+    durs: Dict[str, List[int]] = {}
+    child_ns: Dict[str, int] = {}
+    for sp, path in zip(spans, paths):
+        durs.setdefault(path, []).append(max(sp.dur_ns, 0))
+        if sp.parent >= 0:
+            ppath = paths[sp.parent]
+            child_ns[ppath] = child_ns.get(ppath, 0) + max(sp.dur_ns, 0)
+
+    total_ns = {p: sum(ds) for p, ds in durs.items()}
+    out: Dict[str, PhaseStat] = {}
+    for path, ds in durs.items():
+        arr = np.asarray(ds, np.float64) / 1e6
+        total = total_ns[path]
+        parent_path = path.rsplit("/", 1)[0] if "/" in path else ""
+        root_path = path.split("/", 1)[0]
+        parent_total = total_ns.get(parent_path, total) if parent_path \
+            else total
+        root_total = total_ns.get(root_path, total)
+        out[path] = PhaseStat(
+            path=path, name=path.rsplit("/", 1)[-1],
+            depth=path.count("/"), count=len(ds),
+            total_ms=total / 1e6,
+            self_ms=(total - child_ns.get(path, 0)) / 1e6,
+            p50_ms=float(np.percentile(arr, 50)),
+            p95_ms=float(np.percentile(arr, 95)),
+            pct_of_parent=(total / parent_total) if parent_total > 0 else 0.0,
+            pct_of_root=(total / root_total) if root_total > 0 else 0.0)
+    return out
+
+
+# ----------------------------------------------------------------- exports
+
+def to_chrome_trace(spans: Sequence[Span],
+                    process_name: str = "repro_torch") -> Dict[str, Any]:
+    """Chrome trace-event JSON (the dict; ``json.dump`` it yourself or use
+    ``SpanRecorder.save``).  Complete ("X") events with microsecond
+    timestamps — the dialect Perfetto and ``chrome://tracing`` load."""
+    tid_map: Dict[int, int] = {}
+    events: List[Dict[str, Any]] = [{
+        "ph": "M", "pid": 0, "tid": 0, "name": "process_name",
+        "args": {"name": process_name}}]
+    for sp in spans:
+        tid = tid_map.setdefault(sp.tid, len(tid_map))
+        ev: Dict[str, Any] = {
+            "name": sp.name, "cat": "span", "ph": "X",
+            "ts": sp.start_ns / 1e3, "dur": max(sp.dur_ns, 0) / 1e3,
+            "pid": 0, "tid": tid}
+        if sp.args:
+            ev["args"] = dict(sp.args)
+        events.append(ev)
+    return {"traceEvents": events, "displayTimeUnit": "ms"}
+
+
+def to_records(spans: Sequence[Span]) -> List[Dict[str, Any]]:
+    """Flat JSONL-able span rows (``name="span"``) for the metrics
+    pipeline; ``repro_torch.obs.report`` aggregates them back by ``path``."""
+    paths = span_paths(spans)
+    out = []
+    for sp, path in zip(spans, paths):
+        rec: Dict[str, Any] = {
+            "name": "span", "span": sp.name, "path": path,
+            "start_ms": round(sp.start_ns / 1e6, 6),
+            "dur_ms": round(max(sp.dur_ns, 0) / 1e6, 6),
+            "depth": sp.depth}
+        if sp.args:
+            for k, v in sp.args.items():
+                rec.setdefault(k, v)
+        out.append(rec)
+    return out
