@@ -48,20 +48,37 @@ Phases, each printing one JSON line:
    with bf16 accumulators (5 steps), and both kernels against their plain
    versions on one full leaf each, past 2^31 elements of state (delta
    within one bf16 ulp at few elements, state bit-equal; planted faults in
-   the plain version must fail the same check);
-10. timing: CUDA-event medians of each kernel, its plain version and (exact)
+   the plain version must fail the same check); then the mamba2-780m
+   sub-run (``llm_train.mamba2``): full width and depth, the same shape and
+   exp-sum settings, on a tree of bf16 leaves and three f32 ones; a
+   falling finite loss, 11 launches a step, kernel vs plain path, card vs
+   the card machine's CPU at the f32 smoke config;
+10. serve: the serving launcher (``repro_torch.launch.serve``) on
+    h2o-danube-1.8b and mamba2-780m: its default trace on the card and on
+    the card machine's CPU (smoke configs, f32: equal tokens and step
+    columns); decode (``prefill_cache``, every position's logits) against
+    the full-sequence forward at full width and depth, in bf16 and in f32,
+    and with a ring buffer that wraps, where planted faults on copies of
+    the modules' source must fail the same check; traffic at full width
+    and depth (16 requests, 8 slots) with the first requests run alone and
+    ``Engine.generate`` bit-equal to the packed run; tokens/s, TTFT, ms per
+    step by phase and per prefill token, the busy share, peak memory, and
+    one decode step over the full arena beside its weight-read bound;
+11. timing: CUDA-event medians of each kernel, its plain version and (exact)
    one library call, beside the memory bound; the Exp 2 ms/step;
-11. profile: torch.profiler device time per launch of each kernel at each
+12. profile: torch.profiler device time per launch of each kernel at each
     Exp 2 leaf, and an Exp 2 step's device time, busy share and top kernels.
 
 Then the ``{"kernels": [...]}`` summary line (launches per path: exp2,
 exp1_point, exp3, llm_train, llm_train_exact, llm_train_expsum_bf16acc,
-each counted from 0 just before the path runs), the
+llm_train_mamba2, serve_h2o-danube-1.8b and serve_mamba2-780m (none on
+the serve paths), each counted from 0 just before the path runs), the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Any failed
 check raises, so the script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import functools
 import json
 import os
 import statistics
@@ -542,6 +559,14 @@ BF16_DELTA_TOL = dict(rtol=2.0 ** -7, atol=1e-6, max_share_differing=1e-3)
 # (~1e-6 relative per step), carried over 12 steps of training.
 CARD_CPU_TOL = dict(rtol=1e-4, atol=1e-6)
 BF16_FLOPS_PER_S = 989e12                   # H100 SXM, dense bf16
+#: the llm_train sub-run on mamba2-780m at full width: the train_4k shape,
+#: 2 agents x 2 sequences, exp-sum K = 8 with f32 accumulators through the
+#: exp-sum kernel, on a tree of bf16 leaves and three f32 ones (A_log, D,
+#: dt_bias).  ms/step is the median of steps 1-7.
+MAMBA2_ARCH = "mamba2-780m"
+LLM_MAMBA2 = dict(n_layers=48, steps=8)
+LLM_MAMBA2_REDUCED = {
+    "global_batch": "256 -> 4 (2 agents x 2 sequences of train_4k's 4096)"}
 
 
 def llm_leaf_shapes(cfg, agents: int) -> dict:
@@ -603,6 +628,54 @@ def window_profile(path: str, n_steps: int, step_ms: list, kernel: str,
                         for n, (c, t) in top]}
 
 
+def llm_run(dev, **kw):
+    """One run_training call on ``kw``'s settings (the llm_train phase's
+    defaults otherwise); returns its sink rows, its launches (counted from 0
+    just before), its seconds, its peak device memory (0 for a run on the
+    CPU) and its profile trace path (or None)."""
+    import tempfile
+    import time
+
+    import torch
+    from repro_torch.kernels import frodo_update as KU
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import run_training
+    from repro_torch.obs.metrics import read_jsonl
+
+    tmp = tempfile.mkdtemp(prefix="llm_run_")
+    prof = kw.pop("profile", None)
+    args = dict(arch=LLM_ARCH, smoke=False, agents=LLM["agents"],
+                seq=LLM["seq"], batch_per_agent=LLM["batch_per_agent"],
+                seed=0, device=dev, use_kernel=True,
+                metrics_out=os.path.join(tmp, "metrics.jsonl"))
+    if prof is not None:
+        args.update(profile_dir=tmp, profile_start=prof[0],
+                    profile_stop=prof[1])
+    args.update(kw)
+    on_card = torch.device(args["device"]).type == "cuda"
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    KU.reset_launches()
+    t0 = time.perf_counter()
+    run_training(**args)
+    secs = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev) if on_card else 0
+    rows = read_jsonl(args["metrics_out"])
+    trace = os.path.join(tmp, "trace.json") if prof is not None else None
+    return rows, launches, secs, peak, trace
+
+
+def llm_vs_loss(dev, mode, T_, **kw) -> list:
+    """The losses of a short run (LLM_VS_PLAIN) for the kernel vs plain
+    checks."""
+    rows, *_ = llm_run(dev, n_layers=LLM_VS_PLAIN["n_layers"],
+                       seq=LLM_VS_PLAIN["seq"], memory_mode=mode, T=T_,
+                       steps=LLM_VS_PLAIN["steps"], **kw)
+    return [r["loss"] for r in rows]
+
+
 def llm_train_phase(dev) -> dict:
     """The LLM trainer on the card: h2o-danube-1.8b at full width with cut
     depth, FrODO exp-sum memory through the exp-sum kernel on bf16 leaves
@@ -612,53 +685,16 @@ def llm_train_phase(dev) -> dict:
     kernels against their plain versions at the largest leaves.  Returns
     the launches of the trainer's paths and the kernels' numbers at the
     LLM leaves."""
-    import tempfile
-    import time
-
     import numpy as np
     import torch
     from repro_torch import tree as TR
     from repro_torch.configs import registry as REG
     from repro_torch.core import memory as fmem
     from repro_torch.kernels import frodo_update as KU
-    from repro_torch.kernels import ops, ref
-    from repro_torch.launch.train import run_training
-    from repro_torch.obs.metrics import read_jsonl
+    from repro_torch.kernels import ref
     from repro_torch.training import train_step as TS
 
-    tmp = tempfile.mkdtemp(prefix="llm_train_")
-    runs = [0]
-
-    def train(**kw):
-        """One run_training call on ``kw``'s settings; returns its sink
-        rows, its launches (counted from 0 just before), its seconds, its
-        peak device memory (0 for a run on the CPU) and its profile trace
-        path (or None)."""
-        runs[0] += 1
-        tag = f"run{runs[0]}"
-        prof = kw.pop("profile", None)
-        args = dict(arch=LLM_ARCH, smoke=False, agents=LLM["agents"],
-                    seq=LLM["seq"], batch_per_agent=LLM["batch_per_agent"],
-                    seed=0, device=dev, use_kernel=True,
-                    metrics_out=os.path.join(tmp, f"{tag}.jsonl"))
-        if prof is not None:
-            args.update(profile_dir=os.path.join(tmp, tag),
-                        profile_start=prof[0], profile_stop=prof[1])
-        args.update(kw)
-        on_card = torch.device(args["device"]).type == "cuda"
-        if on_card:
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats(dev)
-        KU.reset_launches()
-        t0 = time.perf_counter()
-        run_training(**args)
-        secs = time.perf_counter() - t0
-        launches = dict(ops.LAUNCHES)
-        peak = torch.cuda.max_memory_allocated(dev) if on_card else 0
-        rows = read_jsonl(args["metrics_out"])
-        trace = (os.path.join(args["profile_dir"], "trace.json")
-                 if prof is not None else None)
-        return rows, launches, secs, peak, trace
+    train = functools.partial(llm_run, dev)
 
     cfg = REG.get_config(LLM_ARCH).replace(n_layers=LLM["n_layers"])
     shapes = llm_leaf_shapes(cfg, LLM["agents"])
@@ -754,11 +790,7 @@ def llm_train_phase(dev) -> dict:
         "exact_bound_ms_at_embed": bound((ex["T"] + 3) * n_emb * 2)}
 
     # ------------------------------------- kernel vs plain, both memory modes
-    def vs_loss(mode, T_, **kw):
-        rows, *_ = train(n_layers=LLM_VS_PLAIN["n_layers"],
-                         seq=LLM_VS_PLAIN["seq"], memory_mode=mode, T=T_,
-                         steps=LLM_VS_PLAIN["steps"], **kw)
-        return [r["loss"] for r in rows]
+    vs_loss = functools.partial(llm_vs_loss, dev)
 
     vs = {}
     for mode, T_ in (("exact", LLM_EXACT["T"]), ("expsum", LLM["T"])):
@@ -980,6 +1012,400 @@ def llm_train_phase(dev) -> dict:
                 bound_ms_per_step=exact["exact_bound_ms_per_step"])}
 
 
+def llm_train_mamba2(dev) -> dict:
+    """The llm_train phase's mamba2-780m sub-run: full width, the train_4k
+    shape, exp-sum through the kernel on bf16 and f32 leaves, a falling
+    finite loss; kernel vs plain path; card vs the card machine's CPU at
+    the f32 smoke config.  Returns its launches."""
+    import numpy as np
+    import torch
+    from repro_torch import tree as TR
+    from repro_torch.configs import registry as REG
+    from repro_torch.models import transformer as TM
+    from repro_torch.training import train_step as TS
+
+    train = functools.partial(llm_run, dev)
+    tokens = LLM["agents"] * LLM["batch_per_agent"] * LLM["seq"]
+    # ------------------------- mamba2-780m: f32 and bf16 leaves in one tree
+    mb = LLM_MAMBA2
+    smoke_m = REG.get_smoke_config(MAMBA2_ARCH)
+    leaf_dtypes = [t.dtype for t in TR.leaves(TM.init_params(
+        torch.Generator(), smoke_m))]
+    n_leaves_m = len(leaf_dtypes)
+    check(set(leaf_dtypes) == {torch.bfloat16, torch.float32},
+          f"mamba2 leaf dtypes {leaf_dtypes}")
+    rows, launches_m, secs, peak_m, _ = train(
+        arch=MAMBA2_ARCH, n_layers=mb["n_layers"], memory_mode="expsum",
+        T=LLM["T"], steps=mb["steps"])
+    check(launches_m == {"frodo_exact_update": 0,
+                         "frodo_expsum_update": n_leaves_m * mb["steps"]},
+          f"exp-sum launches on the mamba2 path: {launches_m}")
+    loss_m = [r["loss"] for r in rows]
+    gnorm_m = [r["grad_norm"] for r in rows]
+    check(bool(np.isfinite(loss_m).all() and np.isfinite(gnorm_m).all()),
+          f"mamba2 loss or grad norm not finite: {loss_m} {gnorm_m}")
+    check(loss_m[-1] < loss_m[0], f"mamba2 loss did not fall: {loss_m}")
+    check(peak_m < 80e9, f"mamba2 peak device memory {peak_m}")
+    step_ms = [r["step_time_ms"] for r in rows]
+    cfg_m = REG.get_config(MAMBA2_ARCH).replace(n_layers=mb["n_layers"])
+    kern = llm_vs_loss(dev, "expsum", LLM["T"], arch=MAMBA2_ARCH, use_kernel=True)
+    plain = llm_vs_loss(dev, "expsum", LLM["T"], arch=MAMBA2_ARCH, use_kernel=False)
+    ok, err = close_np(kern, plain, LLM_LOSS_TOL)
+    check(ok, f"mamba2 exp-sum: kernel vs plain loss {kern} {plain}")
+    vs_m = {"loss_kernel": kern, "loss_plain": plain, "max_abs_err": err}
+    smoke_m32 = smoke_m.replace(param_dtype="float32",
+                                compute_dtype="float32")
+    init_m = TR.tree_map(lambda t: t.numpy(), TS.init_train_state(
+        torch.Generator().manual_seed(0), smoke_m32, TS.TrainConfig(),
+        LLM["agents"]).params)
+    card_cpu_m = {}
+    for where in (dev, "cpu"):
+        rows_c, *_ = train(arch=MAMBA2_ARCH, smoke=True, seq=128,
+                           param_dtype="float32",
+                           steps=LLM_CARD_CPU["steps"], device=where,
+                           init_fn=lambda seed: init_m)
+        card_cpu_m["cpu" if where == "cpu" else "card"] = {
+            k: [r[k] for r in rows_c] for k in ("loss", "grad_norm")}
+    cc_m = {}
+    for k in ("loss", "grad_norm"):
+        ok, err = close_np(card_cpu_m["card"][k], card_cpu_m["cpu"][k],
+                           CARD_CPU_TOL)
+        check(ok, f"mamba2 smoke f32 {k}, card vs CPU: {card_cpu_m}")
+        cc_m[k] = err
+    emit("llm_train.mamba2", arch=MAMBA2_ARCH, width={
+        "d_model": cfg_m.d_model, "d_inner": cfg_m.ssm.expand
+        * cfg_m.d_model, "ssm_heads": cfg_m.ssm.expand * cfg_m.d_model
+        // cfg_m.ssm.head_dim, "head_dim": cfg_m.ssm.head_dim,
+        "d_state": cfg_m.ssm.d_state, "chunk": cfg_m.ssm.chunk,
+        "vocab": cfg_m.vocab, "param_dtype": cfg_m.param_dtype},
+        n_layers=cfg_m.n_layers, reduced=LLM_MAMBA2_REDUCED,
+        agents=LLM["agents"], seq=LLM["seq"],
+        batch_per_agent=LLM["batch_per_agent"], memory_mode="expsum",
+        K=TS.TrainConfig().K, T=LLM["T"], acc_dtype="float32",
+        leaves=n_leaves_m, leaf_dtypes=sorted({str(d) for d in leaf_dtypes}),
+        steps=mb["steps"], seconds=secs, loss=loss_m, grad_norm=gnorm_m,
+        launches=launches_m, ms_per_step=statistics.median(step_ms[1:]),
+        ms_per_step_steps=[1, mb["steps"] - 1],
+        tokens_per_s=tokens / (statistics.median(step_ms[1:]) / 1e3),
+        peak_memory_bytes=peak_m, kernel_vs_plain=vs_m,
+        kernel_vs_plain_tol=LLM_LOSS_TOL, card_vs_cpu_max_abs_err=cc_m,
+        card_vs_cpu_tol=CARD_CPU_TOL, card_vs_cpu=card_cpu_m)
+
+    return launches_m
+
+
+# ---------------------------------------------------------------- serving
+#: the serve phase drives repro_torch.launch.serve (the scheduler) and the
+#: decode path on both families the port serves
+SERVE_ARCHS = ("h2o-danube-1.8b", "mamba2-780m")
+#: launch/serve's default trace (card against CPU, smoke configs in f32)
+SERVE_SMOKE = dict(n_requests=8, rate=0.7, prompt_len_range=(4, 12),
+                   new_tokens_range=(3, 8), max_slots=4, prefill_chunk=8,
+                   token_budget=32, max_len=64, seed=0)
+#: traffic at full width and full depth
+SERVE_FULL = dict(n_requests=16, rate=0.7, prompt_len_range=(16, 128),
+                  new_tokens_range=(16, 64), max_slots=8, prefill_chunk=32,
+                  token_budget=128, max_len=256, seed=0)
+#: the first requests of the full trace, each run alone in a fresh
+#: scheduler, must give the packed run's tokens bit for bit
+SERVE_SOLO = 4
+#: scheduler steps under the profiler (busy share)
+SERVE_PROFILE = (12, 15)
+#: serve.step columns that do not read a clock
+SERVE_STEP_KEYS = ("step", "queue_depth", "occupancy", "free_slots",
+                   "n_prefill", "n_decode", "prefill_tokens",
+                   "decode_tokens", "admitted", "completed")
+#: decode (prefill_cache, every position's logits) against the
+#: full-sequence forward: 2 sequences of 256 tokens; h2o-danube again with
+#: a 128-token window at max_len 512 and 300 tokens, so the ring wraps
+DVF = dict(batch=2, seq=256)
+RING = dict(window=128, max_len=512, seq=300)
+# The largest |logit| difference, decode against forward, per run, with the
+# served bf16 weights and with the same weights in float32 (TF32 off).  On
+# an H100 (NVIDIA H100 80GB HBM3, 700 W) the first runs read, bf16 / f32:
+# h2o-danube 0.047 / 1.3e-5, the ring 0.051 / 1.2e-5, mamba2 0.30 / 5.8e-5
+# (mamba2's bf16 gap is larger: the JAX formulation runs the block's conv
+# in bf16 and the decode's in f32).  Each limit is 2-3 times its reading in
+# bf16 and 7-9 times in f32.  Planted faults (DVF_PLANTED) moved the
+# largest difference to 0.30-6.2 in both dtypes; they must fail the f32
+# check, whose floor is four orders of magnitude lower.  In bf16, mamba2's
+# dA-without-dt fault (0.37) hides under the gap of 0.30 and its limit.
+DVF_TOL = {"h2o-danube-1.8b": {"bfloat16": 0.15, "float32": 1e-4},
+           "ring": {"bfloat16": 0.15, "float32": 1e-4},
+           "mamba2-780m": {"bfloat16": 0.6, "float32": 5e-4}}
+#: planted faults, each a one-line change to a copy of a module's source
+#: (decode's ``A``, attention, or ``S``, ssm) that the f32 decode-vs-forward
+#: check must catch: (module, run, old, new)
+DVF_PLANTED = {
+    "rope_query_off_by_one": (
+        "A", "h2o-danube-1.8b",
+        "q = L.apply_rope(q, p, cfg.rope_theta, cfg.rope_fraction, ctx.rope)",
+        "q = L.apply_rope(q, p + 1, cfg.rope_theta, cfg.rope_fraction)"),
+    "ring_slot_off_by_one": ("A", "ring", "slot = pos % cache_len if",
+                             "slot = (pos + 1) % cache_len if"),
+    "ssm_conv_cache_shifted": ("S", "mamba2-780m",
+                               "new_conv = seq[:, 1:]",
+                               "new_conv = seq[:, :-1]"),
+    "ssm_dA_without_dt": ("S", "mamba2-780m",
+                          "dA = torch.exp(dt * A)", "dA = torch.exp(A)"),
+}
+
+
+def planted_module(module, old: str, new: str):
+    """A copy of ``module`` built from its source with ``old`` (which must
+    occur once) replaced by ``new``."""
+    import types
+    with open(module.__file__) as f:
+        src = f.read()
+    check(src.count(old) == 1, f"{module.__name__}: {old!r} occurs "
+          f"{src.count(old)} times")
+    copy = types.ModuleType(module.__name__ + "_planted")
+    copy.__file__ = module.__file__
+    exec(compile(src.replace(old, new), module.__file__, "exec"),
+         copy.__dict__)
+    return copy
+
+
+def busy_share(trace: str, step_ms: list) -> dict:
+    """Device kernel time over the host-clock time of a profile window's
+    steps, and the kernels per step."""
+    ks = trace_kernels(trace)
+    busy_ms = sum(d for _, _, d in ks) / 1e3
+    return {"device_ms": busy_ms, "host_ms": sum(step_ms),
+            "device_busy_share": busy_ms / sum(step_ms),
+            "kernels_per_step": len(ks) / len(step_ms)}
+
+
+def serve_phase(dev) -> dict:
+    """Serving on the card: the launcher's default trace on the card against
+    the card machine's CPU (smoke configs, f32); decode against the
+    full-sequence forward at full width and depth (and the ring), with
+    planted faults that must fail the same check; traffic at full width and
+    depth through the scheduler, solo runs and Engine.generate bit-equal to
+    the packed run, timed and profiled.  Returns the FrODO kernels'
+    launches on the serve path of each model (there are none)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch import tree as TR
+    from repro_torch.configs import registry as REG
+    from repro_torch.kernels import frodo_update as KU
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import load_model, run_traffic, traffic
+    from repro_torch.models import attention as A
+    from repro_torch.models import decode as D
+    from repro_torch.models import ssm as S
+    from repro_torch.models import transformer as T
+    from repro_torch.obs.metrics import read_jsonl
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.scheduler import (Scheduler, SchedulerConfig,
+                                               masked_decode)
+
+    tmp = tempfile.mkdtemp(prefix="serve_")
+
+    # ---------------------------------- card against CPU, smoke configs
+    card_cpu = {}
+    for arch in SERVE_ARCHS:
+        cfg = REG.get_smoke_config(arch).replace(param_dtype="float32",
+                                                 compute_dtype="float32")
+        init = TR.tree_map(lambda t: t.numpy(), T.init_params(
+            torch.Generator().manual_seed(0), cfg))
+        runs = {}
+        for where in (dev, "cpu"):
+            path = os.path.join(tmp, f"smoke_{arch}_{where}.jsonl")
+            s = run_traffic(arch=arch, smoke=True, param_dtype="float32",
+                            init_fn=lambda seed: init, device=where,
+                            metrics_out=path, quiet=True, **SERVE_SMOKE)
+            steps = [{k: r[k] for k in SERVE_STEP_KEYS}
+                     for r in read_jsonl(path) if r["name"] == "serve.step"]
+            runs["cpu" if where == "cpu" else "card"] = (s["tokens"], steps)
+        check(runs["card"] == runs["cpu"],
+              f"serve {arch} smoke: card and CPU differ: {runs}")
+        card_cpu[arch] = {"requests": len(runs["card"][0]),
+                          "tokens": sum(map(len, runs["card"][0])),
+                          "steps": len(runs["card"][1]),
+                          "tokens_and_step_columns": "equal"}
+
+    # ------------------------- decode against forward, full width and depth
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def gap(cfg, params, toks, window_override, max_len):
+        dec, _ = D.prefill_cache(
+            params, D.init_cache(cfg, toks.shape[0], max_len,
+                                 window_override, device=dev), toks, 0, cfg,
+            window_override, all_logits=True)
+        fwd, _ = T.forward(params, {"tokens": toks}, cfg,
+                           window_override=window_override)
+        d = (dec - fwd).abs()
+        return {"max_abs_err": float(d.max()),
+                "rms_err": float(d.square().mean().sqrt()),
+                "logit_rms": float(fwd.square().mean().sqrt()),
+                "argmax_agree": float((dec.argmax(-1) == fwd.argmax(-1))
+                                      .float().mean())}
+
+    models, dvf, planted = {}, {}, {}
+    for arch in SERVE_ARCHS:
+        cfg, params = load_model(arch, False, 0, dev)
+        models[arch] = (cfg, params)
+        cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
+        params32 = TR.tree_map(lambda t: t.float(), params)
+        runs = {arch: (None, DVF["seq"], DVF["seq"])}
+        if cfg.family == "dense":
+            runs["ring"] = (RING["window"], RING["max_len"], RING["seq"])
+        for label, (wo, max_len, seq) in runs.items():
+            toks = torch.randint(1, cfg.vocab, (DVF["batch"], seq),
+                                 generator=gen, device=dev)
+            for dtype, (c, p) in (("bfloat16", (cfg, params)),
+                                  ("float32", (cfg32, params32))):
+                tol = DVF_TOL[label][dtype]
+                g = gap(c, p, toks, wo, max_len)
+                check(g["max_abs_err"] <= tol, f"decode vs forward "
+                      f"({label}, {dtype}): {g} past {tol}")
+                g.update(window_override=wo, max_len=max_len, seq=seq)
+                dvf[f"{label}/{dtype}"] = g
+                for name, (mod, run, old, new) in DVF_PLANTED.items():
+                    if run != label or dtype != "float32":
+                        continue
+                    setattr(D, mod, planted_module(getattr(D, mod), old,
+                                                   new))
+                    try:
+                        e = gap(c, p, toks, wo, max_len)
+                    finally:
+                        D.A, D.S = A, S
+                    planted[name] = e
+                    check(e["max_abs_err"] > tol, f"planted fault {name} "
+                          f"passes the decode vs forward check ({label}, "
+                          f"{dtype}): {e}")
+        del params32
+        torch.cuda.empty_cache()
+
+    # ------------------------------------ traffic, full width and depth
+    traffic_out = {}
+    launches = {}
+    for arch in SERVE_ARCHS:
+        cfg, params = models[arch]
+        n_bytes = sum(t.numel() * t.element_size()
+                      for t in TR.leaves(params))
+        path = os.path.join(tmp, f"full_{arch}.jsonl")
+        prof_dir = os.path.join(tmp, f"prof_{arch}")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        KU.reset_launches()
+        summary = run_traffic(arch=arch, smoke=False, device=dev,
+                              init_fn=lambda seed: params, metrics_out=path,
+                              quiet=True, profile_dir=prof_dir,
+                              profile_start=SERVE_PROFILE[0],
+                              profile_stop=SERVE_PROFILE[1], **SERVE_FULL)
+        torch.cuda.synchronize(dev)
+        launches[f"serve_{arch}"] = dict(ops.LAUNCHES)
+        check(sum(launches[f"serve_{arch}"].values()) == 0,
+              f"FrODO kernels launched on the serve path: {launches}")
+        peak = torch.cuda.max_memory_allocated(dev)
+        rows = read_jsonl(path)
+        steps = [r for r in rows if r["name"] == "serve.step"]
+        reqs = [r for r in rows if r["name"] == "serve.request"]
+        check(len(reqs) == SERVE_FULL["n_requests"]
+              and max(r["occupancy"] for r in steps) > 1,
+              f"serve {arch}: {len(reqs)} requests done, occupancy "
+              f"{max(r['occupancy'] for r in steps)}")
+
+        # the first requests alone, each in a fresh scheduler
+        trace = [r for rd in traffic(cfg.vocab, **{
+            k: SERVE_FULL[k] for k in ("n_requests", "rate",
+                                       "prompt_len_range",
+                                       "new_tokens_range", "seed")})
+            for r in rd]
+        sc = SchedulerConfig(**{k: SERVE_FULL[k] for k in (
+            "max_slots", "max_len", "prefill_chunk", "token_budget")})
+        for i, (prompt, n_new) in enumerate(trace[:SERVE_SOLO]):
+            sch = Scheduler(cfg, params, sc)
+            solo = sch.result(sch.submit(prompt, n_new)).tolist()
+            check(solo == summary["tokens"][i],
+                  f"serve {arch}: request {i} alone {solo} != packed "
+                  f"{summary['tokens'][i]}")
+        # Engine.generate: request 0 twice in one batch, against alone
+        prompt, n_new = trace[0]
+        eng = Engine(cfg, params, **{k: SERVE_FULL[k] for k in (
+            "max_slots", "max_len", "prefill_chunk", "token_budget")})
+        out = eng.generate(np.stack([prompt, prompt]), n_new)
+        check(all(row.tolist() == summary["tokens"][0] for row in out),
+              f"serve {arch}: Engine.generate {out.tolist()} != alone "
+              f"{summary['tokens'][0]}")
+
+        # one decode step over a full arena, timed and profiled
+        sch = Scheduler(cfg, params, sc)
+        n = sc.max_slots
+        toks = torch.randint(1, cfg.vocab, (n, 1), generator=gen, device=dev)
+        pos = torch.full((n,), 100, dtype=torch.int64, device=dev)
+        active = torch.arange(n, device=dev)
+        for slot in range(n):
+            sch.pool.alloc()
+
+        def step():
+            return masked_decode(params, sch.pool, toks, pos, active, cfg,
+                                 None)
+
+        dec_ms = cuda_ms(step, reps=10)
+        rows_k = device_kernel_us(step)
+        dec_dev_ms = sum(us for _, us in rows_k.values()) / 1e3
+        del sch
+        p0, p1 = SERVE_PROFILE
+        decode_steps = [r for r in steps if r["n_decode"] > 0]
+        gaps = [r["step_time_ms"] for r in decode_steps]
+        pre = sum(r["prefill_tokens"] for r in steps)
+        traffic_out[arch] = {
+            "width": {"d_model": cfg.d_model, "n_layers": cfg.n_layers,
+                      "vocab": cfg.vocab, "param_dtype": cfg.param_dtype},
+            "params": sum(t.numel() for t in TR.leaves(params)),
+            "weight_bytes": n_bytes, "trace": SERVE_FULL,
+            "steps": len(steps), "new_tokens": summary["total_new_tokens"],
+            "decode_tokens": sum(r["decode_tokens"] for r in steps),
+            "prefill_tokens": pre,
+            "decode_tokens_per_s_launcher": summary["decode_tokens_per_s"],
+            "decode_tokens_per_s": sum(r["decode_tokens"] for r in steps)
+            / (sum(r["phase_decode_ms"] for r in steps) / 1e3),
+            "mean_ttft_ms": statistics.mean(r["ttft_ms"] for r in reqs),
+            "mean_ttft_steps": statistics.mean(r["ttft_steps"]
+                                               for r in reqs),
+            "ttft_ms_median_max": [statistics.median(r["ttft_ms"]
+                                                     for r in reqs),
+                                   max(r["ttft_ms"] for r in reqs)],
+            # a decoding request gets one token a step: the gap between
+            # its tokens is the step's time, prefills in it included
+            "token_gap_ms_median_p90": [
+                statistics.median(gaps),
+                statistics.quantiles(gaps, n=10)[-1]],
+            "ms_per_step": {k: statistics.mean(r[k] for r in steps)
+                            for k in ("step_time_ms", "phase_admission_ms",
+                                      "phase_prefill_ms", "phase_decode_ms",
+                                      "phase_telemetry_ms")},
+            "decode_phase_ms_median": statistics.median(
+                r["phase_decode_ms"] for r in decode_steps),
+            "ms_per_prefill_token": sum(r["phase_prefill_ms"]
+                                        for r in steps) / pre,
+            "profile_steps": [p0, p1],
+            "profile": busy_share(os.path.join(prof_dir, "trace.json"),
+                                  [r["step_time_ms"]
+                                   for r in steps[p0:p1 + 1]]),
+            "peak_memory_bytes": peak,
+            "decode_step_full_arena": {
+                "slots": n, "position": 100, "ms_events": dec_ms,
+                "device_ms": dec_dev_ms if rows_k else None,
+                "kernels": sum(c for c, _ in rows_k.values()),
+                "weight_read_bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3},
+            "solo_vs_packed": f"first {SERVE_SOLO} requests bit-equal",
+            "engine_vs_solo": "bit-equal"}
+        emit("serve.traffic", arch=arch, **traffic_out[arch])
+    del models
+    torch.cuda.empty_cache()
+    emit("serve", nvidia_smi=nvidia_smi(), card_vs_cpu=card_cpu,
+         card_vs_cpu_trace=SERVE_SMOKE, decode_vs_forward=dvf,
+         planted_faults=planted, dvf_tol=DVF_TOL)
+    return {"launches": launches, "decode_vs_forward": dvf,
+            "planted": planted, "traffic": traffic_out}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1150,10 +1576,13 @@ def main() -> int:
     launches_exp1 = exp1_phase(dev)
     launches_exp3 = exp3_phase(dev)
     llm = llm_train_phase(dev)
+    llm["launches"]["llm_train_mamba2"] = llm_train_mamba2(dev)
+    serve = serve_phase(dev)
     per_path = {name: {"exp2": launches_exp2[name],
                        "exp1_point": launches_exp1[name],
                        "exp3": launches_exp3[name],
-                       **{p: c[name] for p, c in llm["launches"].items()}}
+                       **{p: c[name] for p, c in llm["launches"].items()},
+                       **{p: c[name] for p, c in serve["launches"].items()}}
                 for name in ("frodo_exact_update", "frodo_expsum_update")}
 
     # ----------------------------------------------------------- timing

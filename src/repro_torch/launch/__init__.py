@@ -1,1 +1,2 @@
-"""Entry points (``python -m repro_torch.launch.train``)."""
+"""Entry points (``python -m repro_torch.launch.train``,
+``python -m repro_torch.launch.serve``)."""

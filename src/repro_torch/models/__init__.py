@@ -1,1 +1,2 @@
-"""The language model: layers, attention and the dense transformer."""
+"""The language model: layers, attention, the transformer (dense and SSM
+families), the mamba2 mixer and single-token decode."""

@@ -8,9 +8,14 @@ chunks, used when the sequence exceeds ``cfg.attn_direct_max``, so a long
 sequence never materialises an S x S score matrix; each KV step goes through
 ``torch.utils.checkpoint``, as the JAX code wraps it in ``jax.checkpoint``.
 Both paths keep the JAX package's einsum formulation, so the tests compare
-like with like.  KV-cache decode and MLA are not ported yet.
+like with like.  One-token decode reads and writes a KV cache, a ring buffer
+of window size under a sliding window; it takes one position per row, so
+rows at different depths (continuous batching) share one call.  MLA is not
+ported yet.
 """
 from __future__ import annotations
+
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -160,3 +165,85 @@ def self_attention(params, x, positions, cfg: ModelConfig,
         o = _blockwise_attn(q, k, v, pos1d, pos1d, causal, window,
                             cfg.attn_chunk)
     return torch.einsum("...hk,hkd->...d", o, params["wo"]["w"])
+
+
+# ----------------------------------------------------------------- decode
+
+class KVCache(NamedTuple):
+    k: torch.Tensor       # (..., B, Scache, G, hd)
+    v: torch.Tensor
+    # Scache = window size when windowed (ring buffer), else max seq len.
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, window: int,
+               dtype, lead: tuple = (), device=None) -> KVCache:
+    size = min(window, max_len) if window > 0 else max_len
+    shape = tuple(lead) + (batch, size, cfg.n_kv_heads, cfg.hd())
+    return KVCache(torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros(shape, dtype=dtype, device=device))
+
+
+class DecodeContext(NamedTuple):
+    """What every layer of one decode step shares: the RoPE tables at each
+    row's position, the cache slot each row writes, and each row's mask
+    over the cache."""
+    rope: Optional[tuple]     # (cos, sin), or None when nothing rotates
+    rows: torch.Tensor        # (B,) 0..B-1
+    slot: torch.Tensor        # (B,) the slot each row writes
+    bias: torch.Tensor        # (B, Scache) additive mask, float32
+
+
+def decode_context(pos: torch.Tensor, cache_len: int, cfg: ModelConfig,
+                   window: int = 0) -> DecodeContext:
+    p = pos[:, None]                                          # (B, 1)
+    slot = pos % cache_len if window > 0 else pos
+    # absolute position held by each slot, per row
+    idx = torch.arange(cache_len, device=pos.device)
+    if window > 0:
+        # ring buffer: slot s holds the largest q <= pos with q % Sc == s
+        k_pos = p - (p - idx) % cache_len
+    else:
+        k_pos = idx.expand(pos.shape[0], cache_len)
+    valid = (k_pos <= p) & (k_pos >= 0)
+    if window > 0:
+        valid &= k_pos > p - window
+    zero = torch.zeros((), dtype=torch.float32, device=pos.device)
+    return DecodeContext(
+        L.rope_tables(p, cfg.hd(), cfg.rope_theta, cfg.rope_fraction),
+        torch.arange(pos.shape[0], device=pos.device), slot,
+        torch.where(valid, zero, torch.full_like(zero, NEG_INF)))
+
+
+def decode_attention(params, x, cache: KVCache, pos: torch.Tensor,
+                     cfg: ModelConfig, ctx: DecodeContext):
+    """One-token decode.  x: (B,1,d); pos: (B,) the position of each row;
+    ``ctx``: ``decode_context(pos, cache length, cfg, window)``, shared by
+    a step's layers.  Returns (out (B,1,d), new cache); ``cache`` is not
+    written, so a caller can keep the old bytes of rows it does not
+    advance."""
+    # the products as plain matmuls on views: one token a row makes the
+    # host's dispatch the step's cost, and an einsum dispatches several
+    # reshapes per product
+    B, _, d = x.shape
+    H, G, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd()
+    x2 = x.view(B, d)
+    q = (x2 @ params["wq"]["w"].view(d, H * hd)).view(B, 1, H, hd)
+    k_new = (x2 @ params["wk"]["w"].view(d, G * hd)).view(B, 1, G, hd)
+    v_new = (x2 @ params["wv"]["w"].view(d, G * hd)).view(B, G, hd)
+    if cfg.qk_norm:
+        q = L.rmsnorm_nd(params["q_norm"]["scale"], q, cfg.norm_eps)
+        k_new = L.rmsnorm_nd(params["k_norm"]["scale"], k_new, cfg.norm_eps)
+    p = pos[:, None]
+    q = L.apply_rope(q, p, cfg.rope_theta, cfg.rope_fraction, ctx.rope)
+    k_new = L.apply_rope(k_new, p, cfg.rope_theta, cfg.rope_fraction,
+                         ctx.rope)
+    idx = (ctx.rows, ctx.slot)
+    k = cache.k.index_put(idx, k_new.view(B, G, hd).to(cache.k.dtype))
+    v = cache.v.index_put(idx, v_new.to(cache.v.dtype))
+    qg = q.view(B, G, H // G, hd)                            # (b, g, r, h)
+    s = torch.matmul(qg, k.permute(0, 2, 3, 1)).float()      # (b, g, r, t)
+    s = s / np.sqrt(hd) + ctx.bias[:, None, None, :]
+    pr = torch.softmax(s, dim=-1).to(v.dtype)
+    o = torch.matmul(pr, v.transpose(1, 2))                  # (b, g, r, h)
+    out = o.reshape(B, H * hd) @ params["wo"]["w"].view(H * hd, d)
+    return out.view(B, 1, d), KVCache(k, v)

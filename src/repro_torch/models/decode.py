@@ -1,0 +1,156 @@
+"""Single-token decode over a per-layer cache, dense and SSM families: the
+port of the JAX package's ``repro.models.decode``.
+
+``init_cache`` builds the cache tree (stacked along the layer dim to match
+the stacked params) and ``decode_step`` advances one token:
+
+    logits, cache = decode_step(params, cache, tokens(B,1), pos, cfg)
+
+Sliding-window archs (and a ``window_override`` for dense archs) get
+ring-buffer KV caches of window size, SSM gets O(1) recurrent state.
+
+``pos`` is one position per row, ``(B,)``, or one int for every row: the
+JAX package ``vmap``s its scalar-position step over the slots for ragged
+decode (``decode_step_ragged``); here per-row RoPE positions, cache write
+indices and ring masks do the same in one batched call.  Every function
+returns a new cache and leaves the one it was given as it was.  MLA, MoE,
+hybrid and audio raise ``NotImplementedError`` (ROADMAP.md).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Union
+
+import torch
+
+from repro_torch import tree as TR
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as A
+from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
+from repro_torch.models.transformer import require_ported
+
+Position = Union[int, torch.Tensor]
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               window_override: Optional[int] = None,
+               device=None) -> Dict[str, Any]:
+    """The zeroed cache of ``batch`` sequences, every leaf ``(n_layers,
+    batch, ...)``, in the compute dtype (the SSM state in float32)."""
+    require_ported(cfg)
+    dt = L.dtype_of(cfg.compute_dtype)
+    window = cfg.window if window_override is None else window_override
+    lead = (cfg.n_layers,)
+    if cfg.family == "ssm":
+        return {"blocks": S.mamba_init_cache(cfg, batch, dt, lead, device)}
+    return {"blocks": A.init_cache(cfg, batch, max_len, window, dt, lead,
+                                   device)}
+
+
+# ------------------------------------------------------------ block steps
+
+def _dense_decode_block(bp, c, x, pos, cfg, ctx):
+    h = L.rmsnorm(bp["ln1"], x, cfg.norm_eps)
+    h, c = A.decode_attention(bp["attn"], h, c, pos, cfg, ctx)
+    x = x + h
+    h = L.rmsnorm(bp["ln2"], x, cfg.norm_eps)
+    return x + L.mlp(bp["mlp"], h, cfg.activation), c
+
+
+def _ssm_step(bp, c, h, cfg):
+    hh = L.rmsnorm(bp["ln1"], h, cfg.norm_eps)
+    out, c = S.mamba_decode(bp["mix"], hh, c, cfg)
+    return h + out, c
+
+
+def _scan_over(stacked_p, stacked_c, fn, x):
+    """``fn(layer_params, layer_cache, x) -> (x, layer_cache)`` over the
+    layer stack; the new layer caches are stacked into a new tree."""
+    flat_p, td_p = TR.flatten(stacked_p)
+    flat_c, td_c = TR.flatten(stacked_c)
+    layers_p = [t.unbind(0) for t in flat_p]
+    layers_c = [t.unbind(0) for t in flat_c]
+    outs = []
+    for i in range(flat_p[0].shape[0]):
+        bp = TR.unflatten(td_p, [ls[i] for ls in layers_p])
+        c = TR.unflatten(td_c, [ls[i] for ls in layers_c])
+        x, c = fn(bp, c, x)
+        outs.append(TR.leaves(c))
+    return x, TR.unflatten(td_c, [torch.stack(ls) for ls in zip(*outs)])
+
+
+def _row_positions(pos: Position, batch: int, device) -> torch.Tensor:
+    if isinstance(pos, torch.Tensor) and pos.dim() == 1:
+        if pos.shape[0] != batch:
+            raise ValueError(f"pos {tuple(pos.shape)} for {batch} rows")
+        return pos.to(device=device, dtype=torch.int64)
+    return torch.full((batch,), int(pos), dtype=torch.int64, device=device)
+
+
+# --------------------------------------------------------------- the step
+
+def decode_step(params, cache, tokens: torch.Tensor, pos: Position,
+                cfg: ModelConfig, window_override: Optional[int] = None):
+    """tokens: (B, 1) int; pos: the current position, an int or one per
+    row (B,).  Returns (logits (B,1,V) float32, new cache)."""
+    require_ported(cfg)
+    window = cfg.window if window_override is None else window_override
+    pos = _row_positions(pos, tokens.shape[0], tokens.device)
+    x = L.embed(params["embed"], tokens)
+    if cfg.family == "ssm":
+        def fn(bp, c, h):
+            return _ssm_step(bp, c, h, cfg)
+    else:
+        ctx = A.decode_context(pos, cache["blocks"].k.shape[2], cfg, window)
+
+        def fn(bp, c, h):
+            return _dense_decode_block(bp, c, h, pos, cfg, ctx)
+    x, bc = _scan_over(params["blocks"], cache["blocks"], fn, x)
+    new_cache = dict(cache)
+    new_cache["blocks"] = bc
+    x = L.rmsnorm(params["ln_f"], x, cfg.norm_eps)
+    logits = (L.unembed(params["embed"], x, cfg.logit_softcap)
+              if cfg.tie_embeddings
+              else L.lm_head(params["lm_head"], x, cfg.logit_softcap))
+    return logits, new_cache
+
+
+# ----------------------------------------------------- prefill + ragged decode
+
+def prefill_cache(params, cache, tokens: torch.Tensor, pos0: int,
+                  cfg: ModelConfig, window_override: Optional[int] = None,
+                  all_logits: bool = False):
+    """Cache-writing prefill: ``decode_step`` over a token chunk, one token
+    at a time, so the cache it writes is bit-equal to stepwise decode.
+
+    ``tokens``: (B, C) int; ``pos0``: the chunk's start position (0 for a
+    fresh prompt, the running offset for chunked prefill).  Returns
+    ``(last_logits (B, V), cache)``: the logits of the final chunk token,
+    the distribution of the first token after the chunk.  With
+    ``all_logits`` the first element is every position's logits, (B, C, V).
+    """
+    C = tokens.shape[1]
+    seen = []
+    for t in range(C):
+        logits, cache = decode_step(params, cache, tokens[:, t:t + 1],
+                                    pos0 + t, cfg, window_override)
+        seen.append(logits[:, -1])
+    if all_logits:
+        return torch.stack(seen, dim=1), cache
+    return seen[-1], cache
+
+
+def decode_step_ragged(params, cache, tokens: torch.Tensor,
+                       pos: torch.Tensor, cfg: ModelConfig,
+                       window_override: Optional[int] = None):
+    """``decode_step`` with a per-sequence position vector, the unit of
+    continuous batching, where every cache slot sits at a different depth.
+
+    ``tokens``: (B, 1) int; ``pos``: (B,) int.  Returns ``(logits (B, 1, V),
+    new cache)``.  Each row's computation reads only its own cache row, so
+    a slot's result does not depend on what the other slots hold; with the
+    batch held at a fixed size (the whole arena), a request's tokens are
+    then bit-equal whether it ran alone or packed."""
+    if not isinstance(pos, torch.Tensor) or pos.dim() != 1:
+        raise ValueError("decode_step_ragged takes one position per row")
+    return decode_step(params, cache, tokens, pos, cfg, window_override)

@@ -59,6 +59,20 @@ def rmsnorm_nd(scale: torch.Tensor, x: torch.Tensor,
 
 # ------------------------------------------------------------ activations
 
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``x * sigmoid(x)`` as ``jax.nn.silu`` computes it: ``x / (1 +
+    exp(-x))`` with each operation rounded to ``x``'s dtype.  In bf16 this
+    differs from ``F.silu`` (one rounding) by a bf16 ulp at about a third
+    of the elements: enough to flip a greedy token at a near-tie."""
+    return x * torch.reciprocal(1 + torch.exp(-x))
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: ``logaddexp(x, 0)``."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype,
+                                           device=x.device))
+
+
 def _relu2(x: torch.Tensor) -> torch.Tensor:     # Nemotron-4 squared ReLU
     return torch.square(F.relu(x))
 
@@ -164,23 +178,38 @@ def rope_freqs(head_dim: int, fraction: float, theta: float) -> np.ndarray:
     return 1.0 / (theta ** (np.arange(0, rot, 2, dtype=np.float64) / rot))
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
-               fraction: float = 1.0) -> torch.Tensor:
-    """x: (..., S, H, hd); positions: broadcastable to (..., S)."""
-    hd = x.shape[-1]
-    rot = int(hd * fraction) // 2 * 2
+def rope_tables(positions: torch.Tensor, head_dim: int, theta: float,
+                fraction: float = 1.0):
+    """``(cos, sin)`` of RoPE's angles at ``positions`` ((..., S) -> (...,
+    S, 1, rot/2), float32), or None when nothing rotates.  A decode step
+    computes them once for all its layers."""
+    rot = int(head_dim * fraction) // 2 * 2
     if rot == 0:
-        return x
-    inv = torch.tensor(rope_freqs(hd, fraction, theta), dtype=torch.float32,
-                       device=x.device)
+        return None
+    inv = torch.tensor(rope_freqs(head_dim, fraction, theta),
+                       dtype=torch.float32, device=positions.device)
     ang = positions[..., None].float() * inv                # (...,S,rot/2)
-    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    return torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               fraction: float = 1.0, tables=None) -> torch.Tensor:
+    """x: (..., S, H, hd); positions: broadcastable to (..., S).  ``tables``:
+    ``rope_tables`` of the same positions, computed once for several
+    calls (``positions`` is then not read)."""
+    hd = x.shape[-1]
+    if tables is None:
+        tables = rope_tables(positions, hd, theta, fraction)
+    if tables is None:
+        return x
+    cos, sin = tables
+    rot = 2 * cos.shape[-1]
     xr, xp = x[..., :rot], x[..., rot:]
     x1, x2 = xr[..., 0::2], xr[..., 1::2]
     y1 = x1 * cos - x2 * sin
     y2 = x2 * cos + x1 * sin
-    yr = torch.stack([y1, y2], dim=-1).reshape(xr.shape)
-    return torch.cat([yr.to(x.dtype), xp], dim=-1)
+    yr = torch.stack([y1, y2], dim=-1).reshape(xr.shape).to(x.dtype)
+    return yr if rot == hd else torch.cat([yr, xp], dim=-1)
 
 
 def sinusoid_at(pos: torch.Tensor, d: int) -> torch.Tensor:

@@ -1,5 +1,6 @@
-"""The language model, dense family: the port of the JAX package's
-``repro.models.transformer`` for ``[attn + mlp] x L`` stacks (h2o-danube).
+"""The language model, dense and SSM families: the port of the JAX
+package's ``repro.models.transformer`` for ``[attn + mlp] x L`` stacks
+(h2o-danube) and ``[mamba2] x L`` stacks (mamba2-780m).
 
 The parameter tree is the JAX package's exactly: nested dicts whose layer
 stack is one leading dimension of each leaf (``blocks/mlp/up/w`` is
@@ -9,7 +10,7 @@ optimizer, the clip and the consensus act leaf by leaf on whole stacks.
 ``_scan_blocks`` is a Python loop over the layers; with ``remat`` each layer
 runs under ``torch.utils.checkpoint``.
 
-Other families (MoE, SSM, hybrid, audio, vision) and MLA attention raise
+Other families (MoE, hybrid, audio, vision) and MLA attention raise
 ``NotImplementedError``: they are queued in ROADMAP.md.
 """
 from __future__ import annotations
@@ -25,19 +26,22 @@ from repro_torch import tree as TR
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
 
 Params = Dict[str, Any]
 
 
-def _require_dense(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+def require_ported(cfg: ModelConfig) -> None:
+    """Raise for a family or attention type the port does not have."""
+    if cfg.family not in ("dense", "ssm"):
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.arch_id}) is not ported yet: the "
-            "port has the dense family only (ROADMAP.md, queue 1, item 3)")
+            "port has the dense and SSM families (ROADMAP.md, queue 1, "
+            "item 2)")
     if cfg.attn_type == "mla":
         raise NotImplementedError(
             f"MLA attention ({cfg.arch_id}) is not ported yet (ROADMAP.md, "
-            "queue 1, item 3)")
+            "queue 1, item 2)")
 
 
 # ------------------------------------------------------------------- init
@@ -53,10 +57,10 @@ def _dense_block_init(gen, cfg: ModelConfig, lead: tuple, device) -> Params:
 
 def init_params(gen: torch.Generator, cfg: ModelConfig, lead: tuple = (),
                 device=None) -> Params:
-    """Random parameters (dense family).  ``lead`` prefixes every leaf with
-    stacked independent draws: ``(n_agents,)`` gives the agent-stacked
-    tree.  ``gen`` must live on ``device``."""
-    _require_dense(cfg)
+    """Random parameters (dense and SSM families).  ``lead`` prefixes every
+    leaf with stacked independent draws: ``(n_agents,)`` gives the
+    agent-stacked tree.  ``gen`` must live on ``device``."""
+    require_ported(cfg)
     dt = L.dtype_of(cfg.param_dtype)
     lead = tuple(lead)
     p: Params = {"embed": L.embed_init(gen, cfg.vocab, cfg.d_model, dt, lead,
@@ -65,7 +69,12 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, lead: tuple = (),
     if not cfg.tie_embeddings:
         p["lm_head"] = L.lm_head_init(gen, cfg.d_model, cfg.vocab, dt, lead,
                                       device)
-    p["blocks"] = _dense_block_init(gen, cfg, lead + (cfg.n_layers,), device)
+    stack = lead + (cfg.n_layers,)
+    if cfg.family == "ssm":
+        p["blocks"] = {"ln1": L.rmsnorm_init(cfg.d_model, dt, stack, device),
+                       "mix": S.mamba_init(gen, cfg, stack, device)}
+    else:
+        p["blocks"] = _dense_block_init(gen, cfg, stack, device)
     return p
 
 
@@ -77,6 +86,11 @@ def _dense_block(bp, x, positions, cfg: ModelConfig, window: int):
     x = x + h
     h = L.rmsnorm(bp["ln2"], x, cfg.norm_eps)
     return x + L.mlp(bp["mlp"], h, cfg.activation), 0.0
+
+
+def _ssm_block(bp, x, cfg: ModelConfig):
+    h = S.mamba_block(bp["mix"], L.rmsnorm(bp["ln1"], x, cfg.norm_eps), cfg)
+    return x + h, 0.0
 
 
 _MM = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
@@ -121,15 +135,18 @@ def forward_features(params: Params, batch: Dict[str, torch.Tensor],
                      ) -> Tuple[torch.Tensor, Any]:
     """Backbone only: returns (normalized features (B,S,d), aux_loss) —
     the head is applied by ``forward`` or by the chunked-CE loss."""
-    _require_dense(cfg)
+    require_ported(cfg)
     tokens = batch["tokens"]
-    S = tokens.shape[-1]
-    positions = torch.arange(S, device=tokens.device)
+    positions = torch.arange(tokens.shape[-1], device=tokens.device)
     window = cfg.window if window_override is None else window_override
     x = L.embed(params["embed"], tokens)
-    x, aux = _scan_blocks(
-        params["blocks"],
-        lambda bp, h: _dense_block(bp, h, positions, cfg, window), x, remat)
+
+    def block(bp, h):
+        if cfg.family == "ssm":
+            return _ssm_block(bp, h, cfg)
+        return _dense_block(bp, h, positions, cfg, window)
+
+    x, aux = _scan_blocks(params["blocks"], block, x, remat)
     x = L.grad_dtype_barrier(x)          # keep backward in compute dtype
     x = L.rmsnorm(params["ln_f"], x, cfg.norm_eps)
     return x, aux

@@ -14,6 +14,7 @@ from repro_torch.device import resolve_device  # noqa: E402
 from repro_torch.experiments import exp1_quadratic as E1  # noqa: E402
 from repro_torch.experiments import exp2_federated as E  # noqa: E402
 from repro_torch.experiments import exp3_faults as E3  # noqa: E402
+from repro_torch.launch import serve as LS  # noqa: E402
 from repro_torch.launch import train as LT  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -88,6 +89,12 @@ def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
         LT.run_training(steps=1, seq=8, batch_per_agent=1)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         LT.main(["--smoke", "--steps", "1", "--seq", "8"])
+    for call in (lambda: LS.run_traffic(n_requests=1),
+                 lambda: LS.main(["--requests", "1"]),
+                 lambda: LS.main(["--batch", "1"]),
+                 lambda: LS.load_model("mamba2-780m", True, 0)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
     for call in (lambda: E1.run_batch([[1.0, 0.0]], [0.8], [0.3], [0.15],
                                       [90.0]),
                  lambda: E3.run_quadratic("gd", 0.1, 2, 0),

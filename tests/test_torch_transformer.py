@@ -125,7 +125,7 @@ def test_loss_and_grads_match_jax(dtype, remat, blockwise):
 
 
 def test_other_families_raise_not_implemented():
-    for arch in ("mamba2-780m", "qwen3-moe-30b-a3b", "minicpm3-4b"):
+    for arch in ("recurrentgemma-9b", "qwen3-moe-30b-a3b", "minicpm3-4b"):
         cfg = REG.get_smoke_config(arch)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             T.init_params(torch.Generator(), cfg)
