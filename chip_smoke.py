@@ -52,27 +52,40 @@ Phases, each printing one JSON line:
    sub-run (``llm_train.mamba2``): full width and depth, the same shape and
    exp-sum settings, on a tree of bf16 leaves and three f32 ones; a
    falling finite loss, 11 launches a step, kernel vs plain path, card vs
-   the card machine's CPU at the f32 smoke config;
+   the card machine's CPU at the f32 smoke config; then the MoE and MLA
+   sub-runs (``llm_train.qwen3-moe-30b-a3b``, ``llm_train.minicpm3-4b``):
+   full width, the same shape, exp-sum through the kernel (qwen3-moe: 1
+   layer, bf16 accumulators; minicpm3: 6 layers), profiled, a falling
+   loss, peak memory under 72 GB, kernel vs plain path at 1 layer, seq 512
+   (a planted alpha 10% high must fail it), card vs CPU at the f32 smoke
+   config; and minicpm3's exact-memory sub-run through the exact kernel;
 10. serve: the serving launcher (``repro_torch.launch.serve``) on
-    h2o-danube-1.8b and mamba2-780m: its default trace on the card and on
-    the card machine's CPU (smoke configs, f32: equal tokens and step
-    columns); decode (``prefill_cache``, every position's logits) against
-    the full-sequence forward at full width and depth, in bf16 and in f32,
-    and with a ring buffer that wraps, where planted faults on copies of
-    the modules' source must fail the same check; traffic at full width
-    and depth (16 requests, 8 slots) with the first requests run alone and
+    h2o-danube-1.8b, mamba2-780m, qwen3-moe-30b-a3b and minicpm3-4b: its
+    default trace on the card and on the card machine's CPU (smoke
+    configs, f32: equal tokens and step columns); decode
+    (``prefill_cache``, every position's logits) against the
+    full-sequence forward at full width and depth, in bf16 and in f32 (the
+    MoE and MLA models' f32 runs at 4 layers), and with a ring buffer that
+    wraps, where planted faults on copies of the modules' source must fail
+    the same check; traffic at full width and depth (16 requests, or 8 for
+    the MoE and MLA models; 8 slots) with the first requests run alone and
     ``Engine.generate`` bit-equal to the packed run; tokens/s, TTFT, ms per
     step by phase and per prefill token, the busy share, peak memory, and
     one decode step over the full arena beside its weight-read bound;
 11. timing: CUDA-event medians of each kernel, its plain version and (exact)
    one library call, beside the memory bound; the Exp 2 ms/step;
 12. profile: torch.profiler device time per launch of each kernel at each
-    Exp 2 leaf, and an Exp 2 step's device time, busy share and top kernels.
+    Exp 2 leaf, and an Exp 2 step's device time, busy share and top kernels;
+13. kernel_bench: the rows of ``repro_torch.experiments.kernel_bench``,
+    each kernel held against its plain version on the row's inputs (at
+    qwen3-moe's ``experts/gate`` the bf16 exp-sum state is past 2^31
+    elements), with planted faults in the plain version that must fail.
 
 Then the ``{"kernels": [...]}`` summary line (launches per path: exp2,
 exp1_point, exp3, llm_train, llm_train_exact, llm_train_expsum_bf16acc,
-llm_train_mamba2, serve_h2o-danube-1.8b and serve_mamba2-780m (none on
-the serve paths), each counted from 0 just before the path runs), the
+llm_train_mamba2, llm_train_qwen3_moe, llm_train_minicpm3,
+llm_train_minicpm3_exact and serve_<arch> for the four served models (none
+on the serve paths), each counted from 0 just before the path runs), the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Any failed
 check raises, so the script exits non-zero and prints no result.
 """
@@ -84,8 +97,10 @@ import os
 import statistics
 import subprocess
 import sys
+import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+T0 = time.perf_counter()
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 STEPS = 40
@@ -132,7 +147,9 @@ EXP3_QUAD_TOL = dict(rtol=1e-4, atol=1e-6)
 
 
 def emit(phase: str, **kw) -> None:
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """One phase's JSON line, with the script's seconds so far."""
+    print(json.dumps({"phase": phase, "t_s": time.perf_counter() - T0,
+                      **kw}), flush=True)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -149,19 +166,8 @@ def nvidia_smi() -> str:
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     """Median device time of one call of ``fn`` (CUDA events)."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+    from repro_torch.experiments.kernel_bench import cuda_us
+    return cuda_us(fn, reps, warmup) / 1e3
 
 
 def device_kernel_us(fn) -> dict:
@@ -292,7 +298,6 @@ def exp1_phase(dev) -> dict:
     committed baseline; the representative point through core.loop with
     the exact kernel at T = 90 padded to 100 slots."""
     import tempfile
-    import time
 
     import numpy as np
     import torch
@@ -371,7 +376,6 @@ def exp3_phase(dev) -> dict:
     path, the robustness headline; then the default scale, timed, in both
     drop modes."""
     import tempfile
-    import time
 
     from repro_torch.experiments import exp3_faults as E3
     from repro_torch.kernels import frodo_update as KU
@@ -477,7 +481,6 @@ def slice_profile(dev) -> dict:
     """Host ms and device ms per round of this slice's paths, and the
     device's busy share: a warm-up call, a timed call (host clock; each
     call ends by copying its result to the host), a profiled call."""
-    import time
 
     import numpy as np
     from repro_torch.experiments import exp1_quadratic as E1
@@ -544,17 +547,6 @@ LLM_CARD_CPU = dict(steps=12)
 # checks that this limit catches both.
 LLM_LOSS_TOL = dict(rtol=1e-4, atol=0.0)
 LLM_PLANTED = {"alpha_x1.1": dict(alpha=0.022), "beta_x1.1": dict(beta=0.0088)}
-# A bf16 delta on an LLM leaf, kernel vs plain version.  Both form
-# -(a g + b M) in f32 and round once to bf16, so an element can differ only
-# where the two f32 results (sums in another order, FMA) fall on either side
-# of a bf16 rounding boundary: by one bf16 ulp (at most 2^-7 of the value),
-# at few elements.  atol covers elements where a g and b M cancel.  The
-# phase plants faults into the plain version on a slab of the same inputs
-# (M weighted 10% high, one coefficient or the slot weights off, truncation
-# in place of rounding) and checks that each fails this.  On an H100 4.0e-5
-# (exp-sum) and 4.7e-5 (exact) of the elements differ, each by one ulp; the
-# planted faults make 0.50 to 0.99 of them differ.
-BF16_DELTA_TOL = dict(rtol=2.0 ** -7, atol=1e-6, max_share_differing=1e-3)
 # Card vs CPU at f32 (TF32 off): the same arithmetic in other sum orders
 # (~1e-6 relative per step), carried over 12 steps of training.
 CARD_CPU_TOL = dict(rtol=1e-4, atol=1e-6)
@@ -569,24 +561,24 @@ LLM_MAMBA2_REDUCED = {
     "global_batch": "256 -> 4 (2 agents x 2 sequences of train_4k's 4096)"}
 
 
-def llm_leaf_shapes(cfg, agents: int) -> dict:
-    """The dense model's parameter leaves, agent-stacked, in the port's
-    (sorted) leaf order: the order the optimizer launches one kernel per
-    leaf."""
-    d, H, G, hd, ff, L, V = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-                             cfg.hd(), cfg.d_ff, cfg.n_layers, cfg.vocab)
-    A = agents
-    shapes = {
-        "blocks/attn/wk/w": (A, L, d, G, hd), "blocks/attn/wo/w": (A, L, H,
-                                                                   hd, d),
-        "blocks/attn/wq/w": (A, L, d, H, hd), "blocks/attn/wv/w": (A, L, d,
-                                                                   G, hd),
-        "blocks/ln1/scale": (A, L, d), "blocks/ln2/scale": (A, L, d),
-        "blocks/mlp/down/w": (A, L, ff, d), "blocks/mlp/gate/w": (A, L, d,
-                                                                  ff),
-        "blocks/mlp/up/w": (A, L, d, ff), "embed/table": (A, V, d),
-        "lm_head/w": (A, d, V), "ln_f/scale": (A, d)}
-    return shapes
+def leaf_names(tree, prefix="") -> list:
+    """``a/b/c`` names of a parameter tree's leaves in the port's (sorted)
+    flatten order: the order the optimizer launches one kernel per leaf."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in leaf_names(tree[k], f"{prefix}{k}/")]
+    return [prefix[:-1]]
+
+
+def meta_leaves(cfg, agents: int) -> dict:
+    """The model's parameter leaves, agent-stacked, by name in flatten
+    order: tensors on the meta device (shape and dtype, no storage)."""
+    import torch
+    from repro_torch import tree as TR
+    from repro_torch.models import transformer as TM
+
+    tree = TM.init_params(torch.Generator(), cfg, (agents,), device="meta")
+    return dict(zip(leaf_names(tree), TR.leaves(tree)))
 
 
 def trace_kernels(path: str) -> list:
@@ -634,7 +626,6 @@ def llm_run(dev, **kw):
     just before), its seconds, its peak device memory (0 for a run on the
     CPU) and its profile trace path (or None)."""
     import tempfile
-    import time
 
     import torch
     from repro_torch.kernels import frodo_update as KU
@@ -690,6 +681,8 @@ def llm_train_phase(dev) -> dict:
     from repro_torch import tree as TR
     from repro_torch.configs import registry as REG
     from repro_torch.core import memory as fmem
+    from repro_torch.experiments import kernel_bench as KB
+    from repro_torch.experiments.kernel_bench import BF16_DELTA_TOL
     from repro_torch.kernels import frodo_update as KU
     from repro_torch.kernels import ref
     from repro_torch.training import train_step as TS
@@ -697,7 +690,8 @@ def llm_train_phase(dev) -> dict:
     train = functools.partial(llm_run, dev)
 
     cfg = REG.get_config(LLM_ARCH).replace(n_layers=LLM["n_layers"])
-    shapes = llm_leaf_shapes(cfg, LLM["agents"])
+    shapes = {k: tuple(t.shape) for k, t in meta_leaves(
+        cfg, LLM["agents"]).items()}
     names = list(shapes)
     n = sum(int(np.prod(s)) for s in shapes.values())
     n_leaves = len(shapes)
@@ -763,7 +757,8 @@ def llm_train_phase(dev) -> dict:
     # ---------------------------------------------- exact memory (default)
     ex = LLM_EXACT
     cfg_x = cfg.replace(n_layers=ex["n_layers"])
-    shapes_x = llm_leaf_shapes(cfg_x, LLM["agents"])
+    shapes_x = {k: tuple(t.shape) for k, t in meta_leaves(
+        cfg_x, LLM["agents"]).items()}
     n_x = sum(int(np.prod(s)) for s in shapes_x.values())
     rows, launches_x, secs, peak_x, trace = train(
         n_layers=ex["n_layers"], memory_mode="exact", T=ex["T"],
@@ -859,45 +854,17 @@ def llm_train_phase(dev) -> dict:
     # ------------------------- both kernels at the largest leaves, > 2^31
     gen = torch.Generator(device=dev).manual_seed(7)
 
-    def bf16_diff(a, b) -> dict:
-        """A bf16 delta against its plain version under BF16_DELTA_TOL, one
-        slice of the leading dim at a time (keeps the f32 temporaries
-        small): the largest |a - b|, the elements past rtol/atol, the share
-        of elements that differ at all, and whether that passes."""
-        tol = BF16_DELTA_TOL
-        worst, n_past, n_diff = 0.0, 0, 0
-        for i in range(a.shape[0]):
-            x, y = a[i].float(), b[i].float()
-            e = (x - y).abs()
-            n_past += int((e > tol["atol"] + tol["rtol"] * y.abs()).sum())
-            n_diff += int((e > 0).sum())
-            worst = max(worst, float(e.max()))
-        share = n_diff / a.numel()
-        return {"max_abs_err": worst, "elements_past_tol": n_past,
-                "share_differing": share,
-                "passes": n_past == 0 and share <= tol["max_share_differing"]}
-
-    def truncated(d32):
-        """An f32 delta cut to bf16 by truncation instead of rounding."""
-        return (d32.view(torch.int32) & -65536).view(torch.float32).to(
-            torch.bfloat16)
-
     def planted(faults: dict, d_ref) -> dict:
         """Each planted fault's delta on a slab against the plain delta
         ``d_ref`` of the same slab: each must fail BF16_DELTA_TOL."""
         out = {}
         for name, d in faults.items():
-            r = bf16_diff(d[None], d_ref[None])
+            r = KB.delta_diff(d, d_ref, BF16_DELTA_TOL)
             check(not r["passes"], f"planted fault {name} passes the bf16 "
                   f"delta check: {r}")
             out[name] = {k: r[k] for k in ("max_abs_err", "elements_past_tol",
                                            "share_differing")}
         return out
-
-    def bit_equal(a, b) -> bool:
-        view = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
-        return all(torch.equal(x.view(view), y.view(view))
-                   for x, y in zip(a, b))
 
     up_shape = shapes["blocks/mlp/up/w"]
     g = torch.randn(up_shape, generator=gen, device=dev).to(torch.bfloat16)
@@ -911,9 +878,9 @@ def llm_train_phase(dev) -> dict:
     d_p, a_p = ref.frodo_expsum_update_ref(g, acc, rates, coeffs, 0.02,
                                            0.008)
     torch.cuda.synchronize(dev)
-    d_err = bf16_diff(d_k, d_p)
+    d_err = KB.delta_diff(d_k, d_p, BF16_DELTA_TOL)
     check(d_err["passes"], f"exp-sum delta at blocks/mlp/up/w: {d_err}")
-    check(bit_equal(a_k, a_p), "exp-sum new accumulators at "
+    check(KB.bit_equal(a_k, a_p), "exp-sum new accumulators at "
           "blocks/mlp/up/w not bit-equal")
     c0 = coeffs.clone()
     c0[0] *= 1.1
@@ -926,7 +893,7 @@ def llm_train_phase(dev) -> dict:
                       g_s, acc_s.clone(), rates, coeffs, 0.02, 0.0088)[0],
                   "c0_x1.1": ref.frodo_expsum_update_ref(
                       g_s, acc_s.clone(), rates, c0, 0.02, 0.008)[0],
-                  "truncation": truncated(ref.frodo_expsum_update_ref(
+                  "truncation": KB.truncated(ref.frodo_expsum_update_ref(
                       g_s.float(), acc_s.clone(), rates, coeffs, 0.02,
                       0.008)[0])}, d_p[0, 0])}
     del a_k, d_k, d_p, a_p, acc_s
@@ -951,9 +918,9 @@ def llm_train_phase(dev) -> dict:
     d_k = KU.exact_update(g, h_k, cursor, mu, 0.02, 0.008)
     d_p, h_p = ref.frodo_update_ref(g, hist, cursor, mu, 0.02, 0.008)
     torch.cuda.synchronize(dev)
-    d_err = bf16_diff(d_k, d_p)
+    d_err = KB.delta_diff(d_k, d_p, BF16_DELTA_TOL)
     check(d_err["passes"], f"exact delta at embed/table: {d_err}")
-    check(bit_equal(h_k, h_p), "exact pushed history at embed/table not "
+    check(KB.bit_equal(h_k, h_p), "exact pushed history at embed/table not "
           "bit-equal")
     ex_big = {"shape": [T_x] + list(emb_shape), "elements": hist.numel(),
               "delta_max_abs_err": d_err["max_abs_err"],
@@ -964,7 +931,7 @@ def llm_train_phase(dev) -> dict:
                       g_s, h_s.clone(), cursor, mu, 0.02, 0.0088)[0],
                   "slot_weights_off_by_one": ref.frodo_update_ref(
                       g_s, h_s.clone(), cursor - 1, mu, 0.02, 0.008)[0],
-                  "truncation": truncated(ref.frodo_update_ref(
+                  "truncation": KB.truncated(ref.frodo_update_ref(
                       g_s.float(), h_s.clone(), cursor, mu, 0.02,
                       0.008)[0])}, d_p[0, :4000])}
     del h_k, d_k, d_p, h_p, h_s
@@ -1094,21 +1061,229 @@ def llm_train_mamba2(dev) -> dict:
     return launches_m
 
 
+# ------------------------------------------ the MoE family and MLA attention
+#: the llm_train sub-runs of qwen3-moe-30b-a3b (MoE) and minicpm3-4b (MLA):
+#: full width, the train_4k shape, 2 agents x 2 sequences, FrODO exp-sum
+#: K = 8 through the exp-sum kernel.  ms/step is the median of the steps
+#: between the first and the profile window (the step after a window also
+#: times the trace's export).
+MOE_ARCH, MLA_ARCH = "qwen3-moe-30b-a3b", "minicpm3-4b"
+LLM_NEW = {
+    MOE_ARCH: dict(path="llm_train_qwen3_moe", n_layers=1, steps=10,
+                   profile=(6, 7),
+                   acc_dtype="bfloat16", big_leaf="blocks/moe/experts/gate",
+                   reduced={
+                       "n_layers": "48 -> 1: one MoE block (623 M parameters "
+                                   "an agent) beside the 622 M of embedding "
+                                   "and head; two agents' exp-sum state of "
+                                   "more does not fit one card",
+                       "global_batch": "256 -> 4 (2 agents x 2 sequences of "
+                                       "train_4k's 4096)",
+                       "acc_dtype": "float32 -> bfloat16: 8 f32 "
+                                    "accumulators of 2 x 1.25 B parameters "
+                                    "are 80 GB"}),
+    MLA_ARCH: dict(path="llm_train_minicpm3", n_layers=6, steps=10,
+                   profile=(6, 7),
+                   acc_dtype="float32", big_leaf="blocks/mlp/up/w",
+                   reduced={
+                       "n_layers": "62 -> 6: two agents' exp-sum state (8 "
+                                   "f32 accumulators of 2 x 752 M "
+                                   "parameters, 48 GB) fits one card",
+                       "global_batch": "256 -> 4 (2 agents x 2 sequences of "
+                                       "train_4k's 4096)"}),
+}
+#: minicpm3's exact-memory sub-run through the exact kernel (seq 4096)
+LLM_MLA_EXACT = dict(n_layers=1, T=32, steps=5, reduced={
+    "n_layers": "62 -> 1",
+    "T": "40 -> 32: two agents' bf16 history of 878 M parameters is 70 GB "
+         "at T = 40, 56 GB at T = 32"})
+#: the peak device memory each trainer run must stay under (of 80 GB)
+LLM_PEAK_LIMIT = 72e9
+# Per-step loss, kernel path vs plain path at 1 layer, seq 512, 3 steps,
+# with the accumulators of the main run, one agent: the plain path's
+# out-of-place accumulator update holds a second copy of the whole state
+# (2 x 20 GB for qwen3-moe's one agent) and OOMs with two.  The limit is
+# LLM_LOSS_TOL.  On an H100 qwen3-moe's losses (bf16 accumulators: the
+# plain path rounds a g, b M, their sum and each new accumulator to bf16,
+# the kernel once from f32) read 7.3e-5 apart on a loss of 12.2, a third
+# of the limit's 1.2e-3; alpha 10% high in the plain path, 3.3e-2.
+LLM_NEW_VS_PLAIN_AGENTS = 1
+
+
+def llm_train_moe_mla(dev) -> dict:
+    """The llm_train phase's sub-runs of the MoE family (qwen3-moe-30b-a3b)
+    and MLA attention (minicpm3-4b): full width with cut depth, the
+    train_4k shape, exp-sum through the kernel (profiled: the kernel's
+    device time at the largest leaf, the busy share); kernel vs plain path
+    at 1 layer, seq 512; card vs the card machine's CPU at the f32 smoke
+    configs; and minicpm3's exact-memory sub-run through the exact kernel.
+    Returns the launches of each path and the kernels' device times at the
+    largest leaves."""
+    import numpy as np
+    import torch
+    from repro_torch import tree as TR
+    from repro_torch.configs import registry as REG
+    from repro_torch.training import train_step as TS
+
+    train = functools.partial(llm_run, dev)
+    tokens = LLM["agents"] * LLM["batch_per_agent"] * LLM["seq"]
+    K_ = TS.TrainConfig().K
+    out, launches, kern = {}, {}, {}
+    for arch, run in LLM_NEW.items():
+        cfg = REG.get_config(arch).replace(n_layers=run["n_layers"])
+        smoke = REG.get_smoke_config(arch)
+        sizes = {n: (tuple(t.shape), t.element_size(), t.dtype)
+                 for n, t in meta_leaves(cfg, LLM["agents"]).items()}
+        names = list(sizes)
+        n_leaves = len(names)
+        big = names.index(run["big_leaf"])
+        n = sum(int(np.prod(s)) for s, _, _ in sizes.values())
+        acc_b = 2 if run["acc_dtype"] == "bfloat16" else 4
+        state_bytes = sum(2 * int(np.prod(s)) * (e + K_ * acc_b)
+                          for s, e, _ in sizes.values())
+        big_shape, big_e, _ = sizes[run["big_leaf"]]
+        big_bytes = 2 * int(np.prod(big_shape)) * (big_e + K_ * acc_b)
+
+        steps = run["steps"]
+        rows, ln, secs, peak, trace = train(
+            arch=arch, n_layers=run["n_layers"], memory_mode="expsum",
+            T=LLM["T"], acc_dtype=run["acc_dtype"], steps=steps,
+            profile=run["profile"])
+        check(ln == {"frodo_exact_update": 0,
+                     "frodo_expsum_update": n_leaves * steps},
+              f"{arch}: exp-sum launches {ln}, want {n_leaves} a step")
+        loss = [r["loss"] for r in rows]
+        gnorm = [r["grad_norm"] for r in rows]
+        check(bool(np.isfinite(loss).all() and np.isfinite(gnorm).all()),
+              f"{arch}: loss or grad norm not finite: {loss} {gnorm}")
+        check(loss[-1] < loss[0], f"{arch}: loss did not fall: {loss}")
+        check(peak < LLM_PEAK_LIMIT, f"{arch}: peak device memory {peak}")
+        step_ms = [r["step_time_ms"] for r in rows]
+        p0, p1 = run["profile"]
+        ms = statistics.median(step_ms[1:p0])
+        prof = window_profile(trace, p1 - p0 + 1, step_ms[p0:p1 + 1],
+                              "expsum_update_kernel", big, n_leaves)
+
+        # kernel vs plain path: 1 layer, seq 512
+        tol = LLM_LOSS_TOL
+        vs_kw = dict(arch=arch, acc_dtype=run["acc_dtype"],
+                     agents=LLM_NEW_VS_PLAIN_AGENTS)
+        vs = {uk: llm_vs_loss(dev, "expsum", LLM["T"], use_kernel=uk,
+                              **vs_kw) for uk in (True, False)}
+        ok, err = close_np(vs[True], vs[False], tol)
+        check(ok, f"{arch}: kernel vs plain loss {vs}")
+        planted = llm_vs_loss(dev, "expsum", LLM["T"], use_kernel=False,
+                              **vs_kw, **LLM_PLANTED["alpha_x1.1"])
+        passes, e_pl = close_np(vs[True], planted, tol)
+        check(not passes, f"{arch}: planted alpha_x1.1 passes the kernel vs "
+              f"plain check ({e_pl})")
+
+        # card vs CPU, the f32 smoke config
+        smoke32 = smoke.replace(param_dtype="float32",
+                                compute_dtype="float32")
+        init = TR.tree_map(lambda t: t.numpy(), TS.init_train_state(
+            torch.Generator().manual_seed(0), smoke32, TS.TrainConfig(),
+            LLM["agents"]).params)
+        cc_rows = {}
+        for where in (dev, "cpu"):
+            r_, *_ = train(arch=arch, smoke=True, seq=128,
+                           param_dtype="float32",
+                           steps=LLM_CARD_CPU["steps"], device=where,
+                           init_fn=lambda seed: init)
+            cc_rows["cpu" if where == "cpu" else "card"] = {
+                k: [r[k] for r in r_] for k in ("loss", "grad_norm")}
+        cc = {}
+        for k in ("loss", "grad_norm"):
+            ok, e = close_np(cc_rows["card"][k], cc_rows["cpu"][k],
+                             CARD_CPU_TOL)
+            check(ok, f"{arch} smoke f32 {k}, card vs CPU: {cc_rows}")
+            cc[k] = e
+
+        launches[run["path"]] = ln
+        out[arch] = {
+            "arch": arch, "width": {
+                "d_model": cfg.d_model, "n_heads": cfg.n_heads,
+                "n_kv_heads": cfg.n_kv_heads, "head_dim": cfg.hd(),
+                "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+                "moe": cfg.moe and cfg.moe.__dict__,
+                "mla": cfg.mla and cfg.mla.__dict__,
+                "param_dtype": cfg.param_dtype},
+            "n_layers": cfg.n_layers, "reduced": run["reduced"],
+            "agents": LLM["agents"], "seq": LLM["seq"],
+            "batch_per_agent": LLM["batch_per_agent"],
+            "tokens_per_step": tokens, "params_per_agent": n // LLM["agents"],
+            "leaves": n_leaves, "memory_mode": "expsum", "K": K_,
+            "T": LLM["T"], "acc_dtype": run["acc_dtype"], "steps": steps,
+            "seconds": secs, "loss": loss, "grad_norm": gnorm,
+            "launches": ln, "launches_per_step": n_leaves,
+            "ms_per_step": ms, "ms_per_step_steps": [1, p0 - 1],
+            "tokens_per_s": tokens / (ms / 1e3), "peak_memory_bytes": peak,
+            "profile_steps": [p0, p1], "profile": prof,
+            "expsum_bound_ms_per_step": state_bytes / HBM_BYTES_PER_S * 1e3,
+            "big_leaf": run["big_leaf"], "big_leaf_shape": list(big_shape),
+            "expsum_bound_ms_at_big_leaf": big_bytes / HBM_BYTES_PER_S * 1e3,
+            "kernel_vs_plain": {"agents": LLM_NEW_VS_PLAIN_AGENTS,
+                                "loss_kernel": vs[True],
+                                "loss_plain": vs[False], "max_abs_err": err,
+                                "planted_alpha_x1.1_max_abs_err": e_pl},
+            "kernel_vs_plain_tol": tol, "card_vs_cpu_max_abs_err": cc,
+            "card_vs_cpu_tol": CARD_CPU_TOL}
+        kern[arch] = {"leaf": run["big_leaf"], "shape": list(big_shape),
+                      "acc_dtype": run["acc_dtype"],
+                      "device_ms_at_leaf": prof["kernel_ms_at_leaf"],
+                      "bound_ms_at_leaf": out[arch][
+                          "expsum_bound_ms_at_big_leaf"],
+                      "device_ms_per_step": prof["kernel_ms_per_step"],
+                      "bound_ms_per_step": out[arch][
+                          "expsum_bound_ms_per_step"]}
+        emit("llm_train." + arch, nvidia_smi=nvidia_smi(), **out[arch])
+
+    # ----------------------- minicpm3: exact memory through the exact kernel
+    ex = LLM_MLA_EXACT
+    n_leaves = len(meta_leaves(REG.get_config(MLA_ARCH).replace(
+        n_layers=ex["n_layers"]), LLM["agents"]))
+    rows, ln, secs, peak, _ = train(
+        arch=MLA_ARCH, n_layers=ex["n_layers"], memory_mode="exact",
+        T=ex["T"], steps=ex["steps"])
+    check(ln == {"frodo_exact_update": n_leaves * ex["steps"],
+                 "frodo_expsum_update": 0},
+          f"{MLA_ARCH}: exact launches {ln}")
+    loss = [r["loss"] for r in rows]
+    check(bool(np.isfinite(loss).all()), f"{MLA_ARCH} exact loss: {loss}")
+    check(peak < LLM_PEAK_LIMIT, f"{MLA_ARCH} exact: peak {peak}")
+    launches["llm_train_minicpm3_exact"] = ln
+    emit("llm_train." + MLA_ARCH + ".exact", nvidia_smi=nvidia_smi(),
+         n_layers=ex["n_layers"], T=ex["T"], reduced=ex["reduced"],
+         steps=ex["steps"], loss=loss, launches=ln,
+         launches_per_step=n_leaves, seconds=secs,
+         ms_per_step=statistics.median(
+             [r["step_time_ms"] for r in rows][1:]),
+         peak_memory_bytes=peak)
+    return {"launches": launches, "kernels": kern}
+
+
 # ---------------------------------------------------------------- serving
 #: the serve phase drives repro_torch.launch.serve (the scheduler) and the
 #: decode path on both families the port serves
-SERVE_ARCHS = ("h2o-danube-1.8b", "mamba2-780m")
+SERVE_ARCHS = ("h2o-danube-1.8b", "mamba2-780m", "qwen3-moe-30b-a3b",
+               "minicpm3-4b")
 #: launch/serve's default trace (card against CPU, smoke configs in f32)
 SERVE_SMOKE = dict(n_requests=8, rate=0.7, prompt_len_range=(4, 12),
                    new_tokens_range=(3, 8), max_slots=4, prefill_chunk=8,
                    token_budget=32, max_len=64, seed=0)
-#: traffic at full width and full depth
+#: traffic at full width and full depth, and how many of its first
+#: requests run alone, each in a fresh scheduler, and must give the packed
+#: run's tokens bit for bit.  The MoE and MLA models serve a shorter trace
+#: (their decode steps launch 3-4 times the kernels)
 SERVE_FULL = dict(n_requests=16, rate=0.7, prompt_len_range=(16, 128),
                   new_tokens_range=(16, 64), max_slots=8, prefill_chunk=32,
                   token_budget=128, max_len=256, seed=0)
-#: the first requests of the full trace, each run alone in a fresh
-#: scheduler, must give the packed run's tokens bit for bit
-SERVE_SOLO = 4
+SERVE_SHORT = dict(SERVE_FULL, n_requests=8, prompt_len_range=(16, 48),
+                   new_tokens_range=(16, 32))
+SERVE_TRAFFIC = {"h2o-danube-1.8b": (SERVE_FULL, 4),
+                 "mamba2-780m": (SERVE_FULL, 4),
+                 "qwen3-moe-30b-a3b": (SERVE_SHORT, 2),
+                 "minicpm3-4b": (SERVE_SHORT, 2)}
 #: scheduler steps under the profiler (busy share)
 SERVE_PROFILE = (12, 15)
 #: serve.step columns that do not read a clock
@@ -1120,6 +1295,11 @@ SERVE_STEP_KEYS = ("step", "queue_depth", "occupancy", "free_slots",
 #: a 128-token window at max_len 512 and 300 tokens, so the ring wraps
 DVF = dict(batch=2, seq=256)
 RING = dict(window=128, max_len=512, seq=300)
+#: the f32 decode-vs-forward runs of the MoE and MLA models (and their
+#: planted faults) at cut depth, on an f32 model of this many layers drawn
+#: from the same seed: qwen3-moe's 30.5 B parameters in f32 (122 GB) do
+#: not fit the card
+DVF_F32_LAYERS = {"qwen3-moe-30b-a3b": 4, "minicpm3-4b": 4}
 # The largest |logit| difference, decode against forward, per run, with the
 # served bf16 weights and with the same weights in float32 (TF32 off).  On
 # an H100 (NVIDIA H100 80GB HBM3, 700 W) the first runs read, bf16 / f32:
@@ -1130,12 +1310,21 @@ RING = dict(window=128, max_len=512, seq=300)
 # largest difference to 0.30-6.2 in both dtypes; they must fail the f32
 # check, whose floor is four orders of magnitude lower.  In bf16, mamba2's
 # dA-without-dt fault (0.37) hides under the gap of 0.30 and its limit.
+# The MoE forward runs with the capacity of every token (decode drops
+# none).  MLA decodes in the absorbed form, the forward in the naive one.
+# qwen3-moe and minicpm3 read 0.094 / 1.4e-5 and 0.094 / 1.3e-5 (the f32
+# runs at 4 layers; argmax agreeing at 97% of positions in bf16); their
+# limits are 2.7 times that in bf16 and 7-8 times in f32.  Planted: tokens
+# routed to expert 0 dropped in decode 0.078, MLA decode without its rope
+# scores 1.26 (f32).
 DVF_TOL = {"h2o-danube-1.8b": {"bfloat16": 0.15, "float32": 1e-4},
            "ring": {"bfloat16": 0.15, "float32": 1e-4},
-           "mamba2-780m": {"bfloat16": 0.6, "float32": 5e-4}}
+           "mamba2-780m": {"bfloat16": 0.6, "float32": 5e-4},
+           "qwen3-moe-30b-a3b": {"bfloat16": 0.25, "float32": 1e-4},
+           "minicpm3-4b": {"bfloat16": 0.25, "float32": 1e-4}}
 #: planted faults, each a one-line change to a copy of a module's source
-#: (decode's ``A``, attention, or ``S``, ssm) that the f32 decode-vs-forward
-#: check must catch: (module, run, old, new)
+#: (decode's ``A``, attention, ``S``, ssm, or ``MOE``, moe) that the f32
+#: decode-vs-forward check must catch: (module, run, old, new)
 DVF_PLANTED = {
     "rope_query_off_by_one": (
         "A", "h2o-danube-1.8b",
@@ -1148,6 +1337,13 @@ DVF_PLANTED = {
                                "new_conv = seq[:, :-1]"),
     "ssm_dA_without_dt": ("S", "mamba2-780m",
                           "dA = torch.exp(dt * A)", "dA = torch.exp(A)"),
+    "moe_tokens_to_expert_0_dropped": (
+        "MOE", "qwen3-moe-30b-a3b", "keep = pos_in_e < C ",
+        "keep = (pos_in_e < C) & (flat_e != 0) "),
+    "mla_without_k_rope": (
+        "A", "minicpm3-4b",
+        "+ torch.matmul(q_rope.view(B, H, -1), k_rope.transpose(1, 2))",
+        ""),
 }
 
 
@@ -1176,31 +1372,208 @@ def busy_share(trace: str, step_ms: list) -> dict:
             "kernels_per_step": len(ks) / len(step_ms)}
 
 
-def serve_phase(dev) -> dict:
-    """Serving on the card: the launcher's default trace on the card against
-    the card machine's CPU (smoke configs, f32); decode against the
-    full-sequence forward at full width and depth (and the ring), with
-    planted faults that must fail the same check; traffic at full width and
-    depth through the scheduler, solo runs and Engine.generate bit-equal to
-    the packed run, timed and profiled.  Returns the FrODO kernels'
-    launches on the serve path of each model (there are none)."""
-    import tempfile
+def bench_rows(rows: list, kernel: str) -> dict:
+    """The kernel bench's rows of one kernel, by name, for the kernels
+    line: device and events microseconds, plain, library, bytes, GB/s,
+    and the check against the plain version."""
+    keys = ("shape", "g_dtype", "state_dtype", "us_events", "us_device",
+            "us_plain", "us_library", "kernel_bytes", "gb_per_s",
+            "share_of_hbm", "vs_plain")
+    return {r["name"]: {k: r.get(k) for k in keys} for r in rows
+            if r["kernel"] == kernel}
 
+
+def serve_dvf(dev, label, cfg, params, toks, window_override=None,
+              max_len=None) -> tuple:
+    """Decode against forward on the sequences ``toks`` with one model:
+    ``(reading, {planted fault: reading})``; the reading must pass
+    ``DVF_TOL[label]``, each planted fault of ``label`` (f32 runs only)
+    must fail it."""
+    from repro_torch.models import attention as A
+    from repro_torch.models import decode as D
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import ssm as S
+    from repro_torch.models import transformer as T
+
+    seq = toks.shape[1]
+    max_len = max_len or seq
+    dtype = cfg.param_dtype
+
+    def gap():
+        dec, _ = D.prefill_cache(
+            params, D.init_cache(cfg, toks.shape[0], max_len,
+                                 window_override, device=dev), toks, 0, cfg,
+            window_override, all_logits=True)
+        fwd, _ = T.forward(params, {"tokens": toks}, MOE.no_drop(cfg),
+                           window_override=window_override)
+        d = (dec - fwd).abs()
+        return {"max_abs_err": float(d.max()),
+                "rms_err": float(d.square().mean().sqrt()),
+                "logit_rms": float(fwd.square().mean().sqrt()),
+                "argmax_agree": float((dec.argmax(-1) == fwd.argmax(-1))
+                                      .float().mean())}
+
+    tol = DVF_TOL[label][dtype]
+    g = gap()
+    check(g["max_abs_err"] <= tol, f"decode vs forward ({label}, {dtype}): "
+          f"{g} past {tol}")
+    g.update(window_override=window_override, max_len=max_len, seq=seq,
+             n_layers=cfg.n_layers)
+    planted = {}
+    for name, (mod, run, old, new) in DVF_PLANTED.items():
+        if run != label or dtype != "float32":
+            continue
+        setattr(D, mod, planted_module(getattr(D, mod), old, new))
+        try:
+            e = gap()
+        finally:
+            D.A, D.S, D.MOE = A, S, MOE
+        planted[name] = e
+        check(e["max_abs_err"] > tol, f"planted fault {name} passes the "
+              f"decode vs forward check ({label}, {dtype}): {e}")
+    return g, planted
+
+
+def serve_traffic(dev, arch, cfg, params, gen, tmp) -> tuple:
+    """One model's full-width traffic through the scheduler, profiled; its
+    first requests alone and request 0 twice through Engine.generate
+    bit-equal to the packed run; one decode step over the full arena timed
+    and profiled.  Returns (summary, FrODO kernel launches)."""
     import numpy as np
     import torch
     from repro_torch import tree as TR
-    from repro_torch.configs import registry as REG
     from repro_torch.kernels import frodo_update as KU
     from repro_torch.kernels import ops
-    from repro_torch.launch.serve import load_model, run_traffic, traffic
-    from repro_torch.models import attention as A
-    from repro_torch.models import decode as D
-    from repro_torch.models import ssm as S
-    from repro_torch.models import transformer as T
+    from repro_torch.launch.serve import run_traffic, traffic
     from repro_torch.obs.metrics import read_jsonl
     from repro_torch.serving.engine import Engine
     from repro_torch.serving.scheduler import (Scheduler, SchedulerConfig,
                                                masked_decode)
+
+    trace_kw, n_solo = SERVE_TRAFFIC[arch]
+    sched_kw = {k: trace_kw[k] for k in ("max_slots", "max_len",
+                                         "prefill_chunk", "token_budget")}
+    n_bytes = sum(t.numel() * t.element_size() for t in TR.leaves(params))
+    path = os.path.join(tmp, f"full_{arch}.jsonl")
+    prof_dir = os.path.join(tmp, f"prof_{arch}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    KU.reset_launches()
+    summary = run_traffic(arch=arch, smoke=False, device=dev,
+                          init_fn=lambda seed: params, metrics_out=path,
+                          quiet=True, profile_dir=prof_dir,
+                          profile_start=SERVE_PROFILE[0],
+                          profile_stop=SERVE_PROFILE[1], **trace_kw)
+    torch.cuda.synchronize(dev)
+    launches = dict(ops.LAUNCHES)
+    check(sum(launches.values()) == 0,
+          f"FrODO kernels launched on the serve path: {launches}")
+    peak = torch.cuda.max_memory_allocated(dev)
+    rows = read_jsonl(path)
+    steps = [r for r in rows if r["name"] == "serve.step"]
+    reqs = [r for r in rows if r["name"] == "serve.request"]
+    check(len(reqs) == trace_kw["n_requests"]
+          and max(r["occupancy"] for r in steps) > 1,
+          f"serve {arch}: {len(reqs)} requests done, occupancy "
+          f"{max(r['occupancy'] for r in steps)}")
+
+    # the first requests alone, each in a fresh scheduler
+    trace = [r for rd in traffic(cfg.vocab, **{
+        k: trace_kw[k] for k in ("n_requests", "rate", "prompt_len_range",
+                                 "new_tokens_range", "seed")}) for r in rd]
+    sc = SchedulerConfig(**sched_kw)
+    for i, (prompt, n_new) in enumerate(trace[:n_solo]):
+        sch = Scheduler(cfg, params, sc)
+        solo = sch.result(sch.submit(prompt, n_new)).tolist()
+        check(solo == summary["tokens"][i],
+              f"serve {arch}: request {i} alone {solo} != packed "
+              f"{summary['tokens'][i]}")
+    # Engine.generate: request 0 twice in one batch, against alone
+    prompt, n_new = trace[0]
+    out = Engine(cfg, params, **sched_kw).generate(
+        np.stack([prompt, prompt]), n_new)
+    check(all(row.tolist() == summary["tokens"][0] for row in out),
+          f"serve {arch}: Engine.generate {out.tolist()} != alone "
+          f"{summary['tokens'][0]}")
+
+    # one decode step over a full arena, timed and profiled
+    sch = Scheduler(cfg, params, sc)
+    n = sc.max_slots
+    toks = torch.randint(1, cfg.vocab, (n, 1), generator=gen, device=dev)
+    pos = torch.full((n,), 100, dtype=torch.int64, device=dev)
+    active = torch.arange(n, device=dev)
+    for _ in range(n):
+        sch.pool.alloc()
+
+    def step():
+        return masked_decode(params, sch.pool, toks, pos, active, cfg, None)
+
+    dec_ms = cuda_ms(step, reps=10)
+    rows_k = device_kernel_us(step)
+    dec_dev_ms = sum(us for _, us in rows_k.values()) / 1e3
+    del sch
+    p0, p1 = SERVE_PROFILE
+    decode_steps = [r for r in steps if r["n_decode"] > 0]
+    gaps = [r["step_time_ms"] for r in decode_steps]
+    pre = sum(r["prefill_tokens"] for r in steps)
+    out = {
+        "width": {"d_model": cfg.d_model, "n_layers": cfg.n_layers,
+                  "vocab": cfg.vocab, "param_dtype": cfg.param_dtype},
+        "params": sum(t.numel() for t in TR.leaves(params)),
+        "weight_bytes": n_bytes, "trace": trace_kw, "solo_runs": n_solo,
+        "steps": len(steps), "new_tokens": summary["total_new_tokens"],
+        "decode_tokens": sum(r["decode_tokens"] for r in steps),
+        "prefill_tokens": pre,
+        "decode_tokens_per_s_launcher": summary["decode_tokens_per_s"],
+        "decode_tokens_per_s": sum(r["decode_tokens"] for r in steps)
+        / (sum(r["phase_decode_ms"] for r in steps) / 1e3),
+        "mean_ttft_ms": statistics.mean(r["ttft_ms"] for r in reqs),
+        "mean_ttft_steps": statistics.mean(r["ttft_steps"] for r in reqs),
+        "ttft_ms_median_max": [statistics.median(r["ttft_ms"] for r in reqs),
+                               max(r["ttft_ms"] for r in reqs)],
+        # a decoding request gets one token a step: the gap between its
+        # tokens is the step's time, prefills in it included
+        "token_gap_ms_median_p90": [statistics.median(gaps),
+                                    statistics.quantiles(gaps, n=10)[-1]],
+        "ms_per_step": {k: statistics.mean(r[k] for r in steps)
+                        for k in ("step_time_ms", "phase_admission_ms",
+                                  "phase_prefill_ms", "phase_decode_ms",
+                                  "phase_telemetry_ms")},
+        "decode_phase_ms_median": statistics.median(
+            r["phase_decode_ms"] for r in decode_steps),
+        "ms_per_prefill_token": sum(r["phase_prefill_ms"]
+                                    for r in steps) / pre,
+        "profile_steps": [p0, p1],
+        "profile": busy_share(os.path.join(prof_dir, "trace.json"),
+                              [r["step_time_ms"] for r in steps[p0:p1 + 1]]),
+        "peak_memory_bytes": peak,
+        "decode_step_full_arena": {
+            "slots": n, "position": 100, "ms_events": dec_ms,
+            "device_ms": dec_dev_ms if rows_k else None,
+            "kernels": sum(c for c, _ in rows_k.values()),
+            "weight_read_bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3},
+        "solo_vs_packed": f"first {n_solo} requests bit-equal",
+        "engine_vs_solo": "bit-equal"}
+    return out, launches
+
+
+def serve_phase(dev) -> dict:
+    """Serving on the card: the launcher's default trace on the card against
+    the card machine's CPU (smoke configs, f32); then per model at full
+    width and depth: decode against the full-sequence forward (and the
+    ring; the f32 run of the MoE and MLA models at cut depth), with
+    planted faults that must fail the same check, and traffic through the
+    scheduler, solo runs and Engine.generate bit-equal to the packed run,
+    timed and profiled.  Returns the FrODO kernels' launches on the serve
+    path of each model (there are none)."""
+    import tempfile
+
+    import torch
+    from repro_torch import tree as TR
+    from repro_torch.configs import registry as REG
+    from repro_torch.launch.serve import load_model, run_traffic
+    from repro_torch.models import transformer as T
+    from repro_torch.obs.metrics import read_jsonl
 
     tmp = tempfile.mkdtemp(prefix="serve_")
 
@@ -1227,181 +1600,52 @@ def serve_phase(dev) -> dict:
                           "steps": len(runs["card"][1]),
                           "tokens_and_step_columns": "equal"}
 
-    # ------------------------- decode against forward, full width and depth
+    # --------------- per model, full width and depth: decode vs forward,
+    # then traffic
     gen = torch.Generator(device=dev).manual_seed(3)
-
-    def gap(cfg, params, toks, window_override, max_len):
-        dec, _ = D.prefill_cache(
-            params, D.init_cache(cfg, toks.shape[0], max_len,
-                                 window_override, device=dev), toks, 0, cfg,
-            window_override, all_logits=True)
-        fwd, _ = T.forward(params, {"tokens": toks}, cfg,
-                           window_override=window_override)
-        d = (dec - fwd).abs()
-        return {"max_abs_err": float(d.max()),
-                "rms_err": float(d.square().mean().sqrt()),
-                "logit_rms": float(fwd.square().mean().sqrt()),
-                "argmax_agree": float((dec.argmax(-1) == fwd.argmax(-1))
-                                      .float().mean())}
-
-    models, dvf, planted = {}, {}, {}
+    dvf, planted, traffic_out, launches = {}, {}, {}, {}
     for arch in SERVE_ARCHS:
         cfg, params = load_model(arch, False, 0, dev)
-        models[arch] = (cfg, params)
-        cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
-        params32 = TR.tree_map(lambda t: t.float(), params)
-        runs = {arch: (None, DVF["seq"], DVF["seq"])}
-        if cfg.family == "dense":
+        runs = {arch: (None, None, DVF["seq"])}
+        if cfg.family == "dense" and cfg.attn_type != "mla":
             runs["ring"] = (RING["window"], RING["max_len"], RING["seq"])
         for label, (wo, max_len, seq) in runs.items():
             toks = torch.randint(1, cfg.vocab, (DVF["batch"], seq),
                                  generator=gen, device=dev)
-            for dtype, (c, p) in (("bfloat16", (cfg, params)),
-                                  ("float32", (cfg32, params32))):
-                tol = DVF_TOL[label][dtype]
-                g = gap(c, p, toks, wo, max_len)
-                check(g["max_abs_err"] <= tol, f"decode vs forward "
-                      f"({label}, {dtype}): {g} past {tol}")
-                g.update(window_override=wo, max_len=max_len, seq=seq)
-                dvf[f"{label}/{dtype}"] = g
-                for name, (mod, run, old, new) in DVF_PLANTED.items():
-                    if run != label or dtype != "float32":
-                        continue
-                    setattr(D, mod, planted_module(getattr(D, mod), old,
-                                                   new))
-                    try:
-                        e = gap(c, p, toks, wo, max_len)
-                    finally:
-                        D.A, D.S = A, S
-                    planted[name] = e
-                    check(e["max_abs_err"] > tol, f"planted fault {name} "
-                          f"passes the decode vs forward check ({label}, "
-                          f"{dtype}): {e}")
-        del params32
+            dvf[f"{label}/bfloat16"], p_ = serve_dvf(
+                dev, label, cfg, params, toks, wo, max_len)
+            planted.update(p_)
+            if arch not in DVF_F32_LAYERS:
+                cfg32 = cfg.replace(param_dtype="float32",
+                                    compute_dtype="float32")
+                params32 = TR.tree_map(lambda t: t.float(), params)
+                dvf[f"{label}/float32"], p_ = serve_dvf(
+                    dev, label, cfg32, params32, toks, wo, max_len)
+                planted.update(p_)
+                del params32
+                torch.cuda.empty_cache()
+        traffic_out[arch], launches[f"serve_{arch}"] = serve_traffic(
+            dev, arch, cfg, params, gen, tmp)
+        emit("serve.traffic", arch=arch, nvidia_smi=nvidia_smi(),
+             **traffic_out[arch])
+        del params
         torch.cuda.empty_cache()
-
-    # ------------------------------------ traffic, full width and depth
-    traffic_out = {}
-    launches = {}
-    for arch in SERVE_ARCHS:
-        cfg, params = models[arch]
-        n_bytes = sum(t.numel() * t.element_size()
-                      for t in TR.leaves(params))
-        path = os.path.join(tmp, f"full_{arch}.jsonl")
-        prof_dir = os.path.join(tmp, f"prof_{arch}")
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats(dev)
-        KU.reset_launches()
-        summary = run_traffic(arch=arch, smoke=False, device=dev,
-                              init_fn=lambda seed: params, metrics_out=path,
-                              quiet=True, profile_dir=prof_dir,
-                              profile_start=SERVE_PROFILE[0],
-                              profile_stop=SERVE_PROFILE[1], **SERVE_FULL)
-        torch.cuda.synchronize(dev)
-        launches[f"serve_{arch}"] = dict(ops.LAUNCHES)
-        check(sum(launches[f"serve_{arch}"].values()) == 0,
-              f"FrODO kernels launched on the serve path: {launches}")
-        peak = torch.cuda.max_memory_allocated(dev)
-        rows = read_jsonl(path)
-        steps = [r for r in rows if r["name"] == "serve.step"]
-        reqs = [r for r in rows if r["name"] == "serve.request"]
-        check(len(reqs) == SERVE_FULL["n_requests"]
-              and max(r["occupancy"] for r in steps) > 1,
-              f"serve {arch}: {len(reqs)} requests done, occupancy "
-              f"{max(r['occupancy'] for r in steps)}")
-
-        # the first requests alone, each in a fresh scheduler
-        trace = [r for rd in traffic(cfg.vocab, **{
-            k: SERVE_FULL[k] for k in ("n_requests", "rate",
-                                       "prompt_len_range",
-                                       "new_tokens_range", "seed")})
-            for r in rd]
-        sc = SchedulerConfig(**{k: SERVE_FULL[k] for k in (
-            "max_slots", "max_len", "prefill_chunk", "token_budget")})
-        for i, (prompt, n_new) in enumerate(trace[:SERVE_SOLO]):
-            sch = Scheduler(cfg, params, sc)
-            solo = sch.result(sch.submit(prompt, n_new)).tolist()
-            check(solo == summary["tokens"][i],
-                  f"serve {arch}: request {i} alone {solo} != packed "
-                  f"{summary['tokens'][i]}")
-        # Engine.generate: request 0 twice in one batch, against alone
-        prompt, n_new = trace[0]
-        eng = Engine(cfg, params, **{k: SERVE_FULL[k] for k in (
-            "max_slots", "max_len", "prefill_chunk", "token_budget")})
-        out = eng.generate(np.stack([prompt, prompt]), n_new)
-        check(all(row.tolist() == summary["tokens"][0] for row in out),
-              f"serve {arch}: Engine.generate {out.tolist()} != alone "
-              f"{summary['tokens'][0]}")
-
-        # one decode step over a full arena, timed and profiled
-        sch = Scheduler(cfg, params, sc)
-        n = sc.max_slots
-        toks = torch.randint(1, cfg.vocab, (n, 1), generator=gen, device=dev)
-        pos = torch.full((n,), 100, dtype=torch.int64, device=dev)
-        active = torch.arange(n, device=dev)
-        for slot in range(n):
-            sch.pool.alloc()
-
-        def step():
-            return masked_decode(params, sch.pool, toks, pos, active, cfg,
-                                 None)
-
-        dec_ms = cuda_ms(step, reps=10)
-        rows_k = device_kernel_us(step)
-        dec_dev_ms = sum(us for _, us in rows_k.values()) / 1e3
-        del sch
-        p0, p1 = SERVE_PROFILE
-        decode_steps = [r for r in steps if r["n_decode"] > 0]
-        gaps = [r["step_time_ms"] for r in decode_steps]
-        pre = sum(r["prefill_tokens"] for r in steps)
-        traffic_out[arch] = {
-            "width": {"d_model": cfg.d_model, "n_layers": cfg.n_layers,
-                      "vocab": cfg.vocab, "param_dtype": cfg.param_dtype},
-            "params": sum(t.numel() for t in TR.leaves(params)),
-            "weight_bytes": n_bytes, "trace": SERVE_FULL,
-            "steps": len(steps), "new_tokens": summary["total_new_tokens"],
-            "decode_tokens": sum(r["decode_tokens"] for r in steps),
-            "prefill_tokens": pre,
-            "decode_tokens_per_s_launcher": summary["decode_tokens_per_s"],
-            "decode_tokens_per_s": sum(r["decode_tokens"] for r in steps)
-            / (sum(r["phase_decode_ms"] for r in steps) / 1e3),
-            "mean_ttft_ms": statistics.mean(r["ttft_ms"] for r in reqs),
-            "mean_ttft_steps": statistics.mean(r["ttft_steps"]
-                                               for r in reqs),
-            "ttft_ms_median_max": [statistics.median(r["ttft_ms"]
-                                                     for r in reqs),
-                                   max(r["ttft_ms"] for r in reqs)],
-            # a decoding request gets one token a step: the gap between
-            # its tokens is the step's time, prefills in it included
-            "token_gap_ms_median_p90": [
-                statistics.median(gaps),
-                statistics.quantiles(gaps, n=10)[-1]],
-            "ms_per_step": {k: statistics.mean(r[k] for r in steps)
-                            for k in ("step_time_ms", "phase_admission_ms",
-                                      "phase_prefill_ms", "phase_decode_ms",
-                                      "phase_telemetry_ms")},
-            "decode_phase_ms_median": statistics.median(
-                r["phase_decode_ms"] for r in decode_steps),
-            "ms_per_prefill_token": sum(r["phase_prefill_ms"]
-                                        for r in steps) / pre,
-            "profile_steps": [p0, p1],
-            "profile": busy_share(os.path.join(prof_dir, "trace.json"),
-                                  [r["step_time_ms"]
-                                   for r in steps[p0:p1 + 1]]),
-            "peak_memory_bytes": peak,
-            "decode_step_full_arena": {
-                "slots": n, "position": 100, "ms_events": dec_ms,
-                "device_ms": dec_dev_ms if rows_k else None,
-                "kernels": sum(c for c, _ in rows_k.values()),
-                "weight_read_bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3},
-            "solo_vs_packed": f"first {SERVE_SOLO} requests bit-equal",
-            "engine_vs_solo": "bit-equal"}
-        emit("serve.traffic", arch=arch, **traffic_out[arch])
-    del models
-    torch.cuda.empty_cache()
+        if arch in DVF_F32_LAYERS:
+            cfg32 = cfg.replace(param_dtype="float32",
+                                compute_dtype="float32",
+                                n_layers=DVF_F32_LAYERS[arch])
+            params32 = T.init_params(
+                torch.Generator(device=dev).manual_seed(0), cfg32,
+                device=dev)
+            dvf[f"{arch}/float32"], p_ = serve_dvf(dev, arch, cfg32,
+                                                   params32, toks)
+            planted.update(p_)
+            del params32
+            torch.cuda.empty_cache()
     emit("serve", nvidia_smi=nvidia_smi(), card_vs_cpu=card_cpu,
          card_vs_cpu_trace=SERVE_SMOKE, decode_vs_forward=dvf,
-         planted_faults=planted, dvf_tol=DVF_TOL)
+         planted_faults=planted, dvf_tol=DVF_TOL,
+         dvf_f32_layers=DVF_F32_LAYERS)
     return {"launches": launches, "decode_vs_forward": dvf,
             "planted": planted, "traffic": traffic_out}
 
@@ -1577,6 +1821,8 @@ def main() -> int:
     launches_exp3 = exp3_phase(dev)
     llm = llm_train_phase(dev)
     llm["launches"]["llm_train_mamba2"] = llm_train_mamba2(dev)
+    new = llm_train_moe_mla(dev)
+    llm["launches"].update(new["launches"])
     serve = serve_phase(dev)
     per_path = {name: {"exp2": launches_exp2[name],
                        "exp1_point": launches_exp1[name],
@@ -1674,13 +1920,9 @@ def main() -> int:
               "40 steps ending in a device sync, median of 3 runs")
 
     # --------------------------------------------- profile (device time)
+    from repro_torch.experiments import kernel_bench
     def per_launch_us(fn, reps=20):
-        rows = device_kernel_us(lambda: [fn() for _ in range(reps)])
-        mine = {k: v for k, v in rows.items() if "_update_kernel" in k}
-        if not mine:
-            return None
-        count, us = map(sum, zip(*mine.values()))
-        return us / count
+        return kernel_bench.device_us(fn, reps)
 
     hists = {k: torch.randn((T,) + tuple(v.shape), generator=gen, device=dev)
              for k, v in leaves.items()}
@@ -1740,9 +1982,17 @@ def main() -> int:
          exact_kernel_on_slice_paths=slice_us,
          slice_paths_per_round=slice_profile(dev),
          exp2_steps_profiled=prof_steps, exp2=breakdown,
-         note="torch.profiler (CUPTI) device time; busy share = device "
+         note="per launch: CUDA events around 20 launches queued behind "
+              "a spin kernel (kernel_bench.device_us); the Exp 2 step: "
+              "torch.profiler (CUPTI) device time; busy share = device "
               "ms/step over the unprofiled host-clock ms/step of the timing "
               "phase")
+
+    # ------------------------------------------------------- kernel bench
+    bench = kernel_bench.rows(dev)       # raises if a kernel disagrees
+    check(all(r["vs_plain"]["state"] == "bit-equal" for r in bench),
+          "kernel_bench: a row without its check against the plain version")
+    emit("kernel_bench", nvidia_smi=smi, rows=bench)
 
     src = "src/repro_torch/kernels/csrc/frodo_update.cu"
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
@@ -1754,7 +2004,8 @@ def main() -> int:
          "launches_per_path": per_path["frodo_exact_update"],
          "max_abs_err": exact_err["float32"],
          "shape": [T] + list(EXP2_LEAVES["w0"]), "dtype": "float32",
-         **{k: ex[k] for k in keys}, "llm_bf16_at_embed": llm["exact"]},
+         **{k: ex[k] for k in keys}, "llm_bf16_at_embed": llm["exact"],
+         "bench": bench_rows(bench, "exact")},
         {"name": "frodo_expsum_update", "route": "cuda", "source": src,
          "replaces": "src/repro/kernels/frodo_update.py:93",
          "launches": sum(per_path["frodo_expsum_update"].values()),
@@ -1762,7 +2013,9 @@ def main() -> int:
          "max_abs_err": max(expsum_err["g=float32,acc=float32"].values()),
          "shape": [K] + list(EXP2_LEAVES["w0"]), "dtype": "float32",
          **{k: es["float32"][k] for k in keys},
-         "llm_bf16g_f32acc_at_mlp_up": llm["expsum"]},
+         "llm_bf16g_f32acc_at_mlp_up": llm["expsum"],
+         "llm_moe_mla_largest_leaves": new["kernels"],
+         "bench": bench_rows(bench, "expsum")},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

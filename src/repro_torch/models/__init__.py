@@ -1,2 +1,3 @@
-"""The language model: layers, attention, the transformer (dense and SSM
-families), the mamba2 mixer and single-token decode."""
+"""The language model: layers, attention (GQA and MLA), mixture of
+experts, the transformer (dense, MoE and SSM families), the mamba2 mixer
+and single-token decode."""

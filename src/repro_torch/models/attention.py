@@ -10,8 +10,11 @@ sequence never materialises an S x S score matrix; each KV step goes through
 Both paths keep the JAX package's einsum formulation, so the tests compare
 like with like.  One-token decode reads and writes a KV cache, a ring buffer
 of window size under a sliding window; it takes one position per row, so
-rows at different depths (continuous batching) share one call.  MLA is not
-ported yet.
+rows at different depths (continuous batching) share one call.
+
+MLA (multi-head latent attention, minicpm3) trains in the naive form, the
+latent expanded into per-head K and V, and decodes in the absorbed form
+against a cache of the latent alone; the two round differently in bf16.
 """
 from __future__ import annotations
 
@@ -247,3 +250,135 @@ def decode_attention(params, x, cache: KVCache, pos: torch.Tensor,
     o = torch.matmul(pr, v.transpose(1, 2))                  # (b, g, r, h)
     out = o.reshape(B, H * hd) @ params["wo"]["w"].view(H * hd, d)
     return out.view(B, 1, d), KVCache(k, v)
+
+
+# ================================================================== MLA
+
+def mla_init(gen, cfg: ModelConfig, lead: tuple = (), device=None) -> dict:
+    dt = L.dtype_of(cfg.param_dtype)
+    m = cfg.mla
+    d, H = cfg.d_model, cfg.n_heads
+    qk_dim = m.qk_nope_dim + m.qk_rope_dim
+    kw = dict(dtype=dt, lead=lead, device=device)
+    return {
+        "q_down": {"w": L.dense_init(gen, d, m.q_lora_rank, **kw)},
+        "q_norm": L.rmsnorm_init(m.q_lora_rank, dt, lead, device),
+        "q_up": {"w": L.dense_init(gen, m.q_lora_rank, H, qk_dim, **kw)},
+        "kv_down": {"w": L.dense_init(gen, d, m.kv_lora_rank + m.qk_rope_dim,
+                                      **kw)},
+        "kv_norm": L.rmsnorm_init(m.kv_lora_rank, dt, lead, device),
+        "kv_up": {"w": L.dense_init(gen, m.kv_lora_rank, H,
+                                    m.qk_nope_dim + m.v_head_dim, **kw)},
+        "wo_mla": {"w": L.dense_init(gen, H, m.v_head_dim, d, **kw)},
+    }
+
+
+def _mla_qkv_latent(params, x, positions, cfg: ModelConfig, tables=None):
+    """x: (..., S, d) -> q_nope (..., S, H, nope), q_rope (..., S, H, rope),
+    the latent c_kv (..., S, r) and k_rope (..., S, rope): one rotation of
+    k_rope, shared by every head.  ``tables``: ``rope_tables`` of
+    ``positions`` at the rope dim, computed once for several layers."""
+    m = cfg.mla
+    H, r = cfg.n_heads, m.kv_lora_rank
+    qk = m.qk_nope_dim + m.qk_rope_dim
+    cq = L.rmsnorm(params["q_norm"], x @ params["q_down"]["w"], cfg.norm_eps)
+    q = (cq @ params["q_up"]["w"].reshape(m.q_lora_rank, H * qk)).reshape(
+        x.shape[:-1] + (H, qk))
+    q_nope, q_rope = q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:]
+    q_rope = L.apply_rope(q_rope, positions, cfg.rope_theta, tables=tables)
+    ckv_full = x @ params["kv_down"]["w"]
+    c_kv = L.rmsnorm(params["kv_norm"], ckv_full[..., :r], cfg.norm_eps)
+    k_rope = L.apply_rope(ckv_full[..., None, r:], positions, cfg.rope_theta,
+                          tables=tables)[..., 0, :]
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def mla_attention(params, x, positions, cfg: ModelConfig) -> torch.Tensor:
+    """Train/prefill MLA: expand the latent into per-head K/V (the naive
+    form).  v's head dim may differ from q/k's; the softmax scale is
+    1/sqrt(nope + rope) on both paths."""
+    m = cfg.mla
+    H = cfg.n_heads
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv_latent(params, x, positions, cfg)
+    kv = (c_kv @ params["kv_up"]["w"].reshape(m.kv_lora_rank, -1)).reshape(
+        c_kv.shape[:-1] + (H, m.qk_nope_dim + m.v_head_dim))
+    k_nope, v = kv[..., :m.qk_nope_dim], kv[..., m.qk_nope_dim:]
+    k_rope_h = k_rope[..., None, :].expand(k_rope.shape[:-1]
+                                           + (H, m.qk_rope_dim))
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope_h], dim=-1)
+    S = x.shape[-2]
+    if S <= cfg.attn_direct_max:
+        bias = _mask_bias(positions, positions, True, 0)
+        while bias.dim() < 4:
+            bias = bias[None]
+        o = _direct_attn(q, k, v, bias)
+    else:
+        pos1d = (positions.reshape(-1)[-S:] if positions.dim() > 1
+                 else positions)
+        o = _blockwise_attn(q, k, v, pos1d, pos1d, True, 0, cfg.attn_chunk)
+    return torch.einsum("...hk,hkd->...d", o, params["wo_mla"]["w"])
+
+
+class MLACache(NamedTuple):
+    c_kv: torch.Tensor       # (..., B, S, kv_lora_rank): the latent
+    k_rope: torch.Tensor     # (..., B, S, qk_rope_dim)
+
+
+def mla_init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
+                   lead: tuple = (), device=None) -> MLACache:
+    m = cfg.mla
+    shape = tuple(lead) + (batch, max_len)
+    return MLACache(
+        torch.zeros(shape + (m.kv_lora_rank,), dtype=dtype, device=device),
+        torch.zeros(shape + (m.qk_rope_dim,), dtype=dtype, device=device))
+
+
+def mla_decode_context(pos: torch.Tensor, cache_len: int, cfg: ModelConfig,
+                       window: int = 0) -> DecodeContext:
+    """``decode_context`` for MLA: RoPE at the rope dim, each row writing
+    slot ``pos`` of a cache as long as the sequence (the JAX package's MLA
+    cache has no ring), masked past ``pos`` and outside the window."""
+    p = pos[:, None]
+    idx = torch.arange(cache_len, device=pos.device)
+    valid = idx <= p
+    if window > 0:
+        valid &= idx > p - window
+    zero = torch.zeros((), dtype=torch.float32, device=pos.device)
+    return DecodeContext(
+        L.rope_tables(p, cfg.mla.qk_rope_dim, cfg.rope_theta),
+        torch.arange(pos.shape[0], device=pos.device), pos,
+        torch.where(valid, zero, torch.full_like(zero, NEG_INF)))
+
+
+def mla_decode(params, x, cache: MLACache, pos: torch.Tensor,
+               cfg: ModelConfig, ctx: DecodeContext):
+    """Absorbed-form MLA decode against the latent cache: W_UK is absorbed
+    into q, so scores are taken in the kv_lora_rank space and the cache
+    holds rank + rope_dim numbers a token.  x: (B,1,d); pos: (B,);
+    ``ctx``: ``mla_decode_context``.  Returns (out (B,1,d), new cache);
+    ``cache`` is not written."""
+    m = cfg.mla
+    B, _, d = x.shape
+    H, nope, vd = cfg.n_heads, m.qk_nope_dim, m.v_head_dim
+    q_nope, q_rope, c_new, kr_new = _mla_qkv_latent(
+        params, x, pos[:, None], cfg, ctx.rope)
+    idx = (ctx.rows, ctx.slot)
+    c_kv = cache.c_kv.index_put(idx, c_new[:, 0].to(cache.c_kv.dtype))
+    k_rope = cache.k_rope.index_put(idx, kr_new[:, 0].to(cache.k_rope.dtype))
+    w = params["kv_up"]["w"]                             # (r, H, nope + v)
+    w_uk = w[..., :nope].permute(1, 2, 0)                # (H, nope, r)
+    w_uv = w[..., nope:].transpose(0, 1)                 # (H, r, v)
+    # the absorbed q, (H, B, r) -> (B, H, r)
+    q_abs = torch.matmul(q_nope.view(B, H, nope).transpose(0, 1),
+                         w_uk).transpose(0, 1)
+    s = (torch.matmul(q_abs, c_kv.transpose(1, 2))
+         + torch.matmul(q_rope.view(B, H, -1), k_rope.transpose(1, 2))
+         ).float()                                        # (B, H, T)
+    s = s / np.sqrt(nope + m.qk_rope_dim) + ctx.bias[:, None, :]
+    p = torch.softmax(s, dim=-1).to(c_kv.dtype)
+    o_lat = torch.matmul(p, c_kv)                        # (B, H, r)
+    o = torch.matmul(o_lat.transpose(0, 1), w_uv)        # (H, B, v)
+    out = o.transpose(0, 1).reshape(B, H * vd) @ params["wo_mla"]["w"].view(
+        H * vd, d)
+    return out.view(B, 1, d), MLACache(c_kv, k_rope)

@@ -1,20 +1,26 @@
-"""Single-token decode over a per-layer cache, dense and SSM families: the
-port of the JAX package's ``repro.models.decode``.
+"""Single-token decode over a per-layer cache, dense (GQA and MLA), MoE and
+SSM families: the port of the JAX package's ``repro.models.decode``.
 
 ``init_cache`` builds the cache tree (stacked along the layer dim to match
-the stacked params) and ``decode_step`` advances one token:
+the stacked params; a MoE model with a dense prefix has a ``dense_blocks``
+cache beside ``blocks``) and ``decode_step`` advances one token:
 
     logits, cache = decode_step(params, cache, tokens(B,1), pos, cfg)
 
 Sliding-window archs (and a ``window_override`` for dense archs) get
-ring-buffer KV caches of window size, SSM gets O(1) recurrent state.
+ring-buffer KV caches of window size, MLA a latent cache as long as the
+sequence, SSM O(1) recurrent state.
 
 ``pos`` is one position per row, ``(B,)``, or one int for every row: the
 JAX package ``vmap``s its scalar-position step over the slots for ragged
 decode (``decode_step_ragged``); here per-row RoPE positions, cache write
-indices and ring masks do the same in one batched call.  Every function
-returns a new cache and leaves the one it was given as it was.  MLA, MoE,
-hybrid and audio raise ``NotImplementedError`` (ROADMAP.md).
+indices and masks do the same in one batched call.  So a MoE layer routes
+all B rows together where the JAX package routes each alone, and it takes
+an expert capacity of at least B: a token's k experts are distinct, so no
+row is ever dropped, as none is when each routes alone.  Every function
+returns a new cache and leaves the one it was given as it was.  The
+hybrid, audio and vision families raise ``NotImplementedError``
+(ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -26,6 +32,7 @@ from repro_torch import tree as TR
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as S
 from repro_torch.models.transformer import require_ported
 
@@ -40,20 +47,37 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     require_ported(cfg)
     dt = L.dtype_of(cfg.compute_dtype)
     window = cfg.window if window_override is None else window_override
-    lead = (cfg.n_layers,)
     if cfg.family == "ssm":
-        return {"blocks": S.mamba_init_cache(cfg, batch, dt, lead, device)}
-    return {"blocks": A.init_cache(cfg, batch, max_len, window, dt, lead,
-                                   device)}
+        return {"blocks": S.mamba_init_cache(cfg, batch, dt,
+                                             (cfg.n_layers,), device)}
+
+    def make(n):
+        if cfg.attn_type == "mla":
+            return A.mla_init_cache(cfg, batch, max_len, dt, (n,), device)
+        return A.init_cache(cfg, batch, max_len, window, dt, (n,), device)
+
+    nd = cfg.moe.n_dense_layers if cfg.family == "moe" else 0
+    cache = {"blocks": make(cfg.n_layers - nd)}
+    if nd:
+        cache["dense_blocks"] = make(nd)
+    return cache
 
 
 # ------------------------------------------------------------ block steps
 
 def _dense_decode_block(bp, c, x, pos, cfg, ctx):
     h = L.rmsnorm(bp["ln1"], x, cfg.norm_eps)
-    h, c = A.decode_attention(bp["attn"], h, c, pos, cfg, ctx)
+    if cfg.attn_type == "mla":
+        h, c = A.mla_decode(bp["attn"], h, c, pos, cfg, ctx)
+    else:
+        h, c = A.decode_attention(bp["attn"], h, c, pos, cfg, ctx)
     x = x + h
     h = L.rmsnorm(bp["ln2"], x, cfg.norm_eps)
+    if "moe" in bp:
+        # never drop: capacity of at least one slot per row
+        h, _ = MOE.moe_mlp(bp["moe"], h, cfg, min_capacity=x.shape[0],
+                           with_aux=False)
+        return x + h, c
     return x + L.mlp(bp["mlp"], h, cfg.activation), c
 
 
@@ -101,13 +125,16 @@ def decode_step(params, cache, tokens: torch.Tensor, pos: Position,
         def fn(bp, c, h):
             return _ssm_step(bp, c, h, cfg)
     else:
-        ctx = A.decode_context(pos, cache["blocks"].k.shape[2], cfg, window)
+        cache_len = TR.leaves(cache["blocks"])[0].shape[2]
+        ctx = (A.mla_decode_context if cfg.attn_type == "mla"
+               else A.decode_context)(pos, cache_len, cfg, window)
 
         def fn(bp, c, h):
             return _dense_decode_block(bp, c, h, pos, cfg, ctx)
-    x, bc = _scan_over(params["blocks"], cache["blocks"], fn, x)
     new_cache = dict(cache)
-    new_cache["blocks"] = bc
+    for name in ("dense_blocks", "blocks"):     # the dense prefix first
+        if name in params:
+            x, new_cache[name] = _scan_over(params[name], cache[name], fn, x)
     x = L.rmsnorm(params["ln_f"], x, cfg.norm_eps)
     logits = (L.unembed(params["embed"], x, cfg.logit_softcap)
               if cfg.tie_embeddings

@@ -11,6 +11,8 @@ package's initial weights across (``repro_torch.convert``).
 """
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -23,16 +25,68 @@ def dtype_of(name: str) -> torch.dtype:
     return DTYPES[name]
 
 
+#: the most float32 elements one init draw makes at a time: a larger leaf
+#: is drawn slice by slice along its leading (stack) axes into a leaf
+#: allocated once in its own dtype, so the f32 temporary stays small (a
+#: full-width qwen3-moe's stacked ``experts/gate`` is 9.66 B elements: 38.6
+#: GB in f32 beside its 19.3 GB in bf16)
+MAX_DRAW_ELEMENTS = 1 << 30
+
+
+def _draw(shape: tuple, dtype, device, fill) -> torch.Tensor:
+    """A leaf of ``shape`` in ``dtype`` whose values ``fill(f32 tensor)``
+    draws and returns, at most ``MAX_DRAW_ELEMENTS`` f32 elements a draw.
+    The slices are drawn in storage order, one after another from the same
+    generator, so on the CPU the sliced draw is bit-equal to one draw of
+    the whole leaf (on CUDA each draw takes its own Philox offset: seeded
+    and deterministic, but other numbers).  A normal draw on the CPU fills
+    16 numbers at a time, so for it this holds when each slice is a
+    multiple of 16 elements."""
+    n, max_elements = int(np.prod(shape)), MAX_DRAW_ELEMENTS
+    if n <= max_elements:
+        return fill(torch.empty(shape, dtype=torch.float32,
+                                device=device)).to(dtype)
+    lead = 0                   # split the fewest leading axes that will do
+    while int(np.prod(shape[lead:])) > max_elements and lead < len(shape):
+        lead += 1
+    out = torch.empty(shape, dtype=dtype, device=device)
+    flat = out.view((-1,) + tuple(shape[lead:]))
+    for i in range(flat.shape[0]):
+        flat[i] = fill(torch.empty(shape[lead:], dtype=torch.float32,
+                                   device=device))
+    return out
+
+
+def _norm_cdf(x: float) -> float:
+    return (1.0 + math.erf(x / math.sqrt(2.0))) / 2.0
+
+
+def _trunc_normal_(w: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
+    """Standard normal truncated to [-3, 3], in place, by the inverse CDF of
+    one uniform draw per element (``torch.nn.init.trunc_normal_``'s
+    method before it moved to rejection sampling, whose draws depend on
+    how the leaf is cut).  Element i takes the i-th number of the stream,
+    so a leaf drawn in slices gets the numbers of one whole draw."""
+    lo, hi = _norm_cdf(-3.0), _norm_cdf(3.0)
+    w.uniform_(2 * lo - 1, 2 * hi - 1, generator=gen)
+    w.erfinv_()
+    w.mul_(math.sqrt(2.0))
+    w.add_(0.0)                # the mean: -0.0 becomes 0.0, as there
+    return w.clamp_(min=-3.0, max=3.0)
+
+
 def dense_init(gen: torch.Generator, d_in: int, *out_dims: int, dtype,
                scale: float = 1.0, lead: tuple = (),
                device=None) -> torch.Tensor:
     """Fan-in scaled truncated-normal init; shape ``lead + (d_in,
-    *out_dims)`` (``lead`` stacks independent draws: agents, layers)."""
-    shape = tuple(lead) + (d_in,) + out_dims
+    *out_dims)`` (``lead`` stacks independent draws: agents, layers,
+    experts)."""
     std = scale / np.sqrt(d_in)
-    w = torch.empty(shape, dtype=torch.float32, device=device)
-    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -3.0, 3.0, generator=gen)
-    return (w * std).to(dtype)
+
+    def fill(w):
+        return _trunc_normal_(w, gen) * std
+
+    return _draw(tuple(lead) + (d_in,) + out_dims, dtype, device, fill)
 
 
 # ----------------------------------------------------------------- norms
@@ -117,9 +171,11 @@ def mlp(params: dict, x: torch.Tensor, act_name: str) -> torch.Tensor:
 
 def embed_init(gen, vocab: int, d_model: int, dtype, lead: tuple = (),
                device=None) -> dict:
-    tbl = torch.randn(tuple(lead) + (vocab, d_model), generator=gen,
-                      device=device) * 0.02
-    return {"table": tbl.to(dtype)}
+    def fill(t):
+        return t.normal_(generator=gen) * 0.02
+
+    return {"table": _draw(tuple(lead) + (vocab, d_model), dtype, device,
+                           fill)}
 
 
 def embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:

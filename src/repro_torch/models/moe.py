@@ -1,0 +1,157 @@
+"""Mixture-of-Experts with top-k routing and sort-based capacity dispatch:
+the port of the JAX package's ``repro.models.moe``.
+
+Tokens never build a (tokens x experts x capacity) one-hot:
+
+  1. route: top-k expert ids and weights per token (the router in f32);
+  2. each assignment's position inside its expert, from a stable sort by
+     expert id (running index minus the expert's offset);
+  3. scatter the token embeddings into an (E, C, d) capacity buffer; an
+     assignment past its expert's capacity C goes to a spare slot that is
+     thrown away (``capacity_factor`` sets C);
+  4. the batched expert MLP over the buffer;
+  5. gather each assignment's output back and combine with the router
+     weights.
+
+The combine adds a token's k terms one after another in assignment order
+(j = 0..k-1), rounding to the output dtype after each add, as the JAX
+package's scatter-add does; ``index_add_`` would add them with float
+atomics in an order that changes from run to run.  The gate and up
+products are two batched matmuls over the same buffer: the JAX code
+concatenates the two weight stacks first, which here would copy 2/3 of the
+expert weights on every call.
+
+A caller that must never drop (decode, where the JAX package routes each
+sequence alone and a token's k distinct experts always fit) passes
+``min_capacity`` = the row count.  ``dispatch_groups`` > 1 (shard-local
+dispatch over a device mesh) belongs to the distributed slice.
+
+Aux losses: load balance (Switch-style) and router z-loss, returned for
+the trainer to add.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
+
+
+def moe_init(gen, cfg: ModelConfig, lead: tuple = (), device=None) -> dict:
+    dt = L.dtype_of(cfg.param_dtype)
+    m = cfg.moe
+    d, ff, E = cfg.d_model, m.expert_d_ff, m.n_experts
+    lead = tuple(lead)
+    kw = dict(dtype=dt, lead=lead + (E,), device=device)
+    p = {"router": {"w": L.dense_init(gen, d, E, dtype=torch.float32,
+                                      lead=lead, device=device)},
+         "experts": {"gate": L.dense_init(gen, d, ff, **kw),
+                     "up": L.dense_init(gen, d, ff, **kw),
+                     "down": L.dense_init(gen, ff, d, **kw)}}
+    if m.n_shared_experts:
+        p["shared"] = L.mlp_init(gen, d, m.shared_d_ff or m.expert_d_ff,
+                                 True, dt, lead, device)
+    return p
+
+
+def no_drop(cfg: ModelConfig) -> ModelConfig:
+    """``cfg`` with an expert capacity of every token (capacity factor
+    E/k), so a MoE forward drops nothing, as decode never does; a config of
+    another family as it is."""
+    if cfg.family != "moe":
+        return cfg
+    m = cfg.moe
+    return cfg.replace(moe=m.__class__(**{
+        **m.__dict__, "capacity_factor": m.n_experts / m.top_k}))
+
+
+def _capacity(n_tokens: int, m) -> int:
+    c = int(np.ceil(n_tokens * m.top_k * m.capacity_factor / m.n_experts))
+    return max(8, int(np.ceil(c / 8)) * 8)
+
+
+def _dispatch_one(xt, top_e, E: int, k: int, C: int):
+    """Sort-based dispatch of one token group.  xt: (n, d); top_e: (n, k).
+    Returns the (E, C, d) buffer, each assignment's buffer row ``dest``
+    (E*C where it dropped), ``keep`` and ``token_idx``, all (n*k,)."""
+    n, d = xt.shape
+    dev = xt.device
+    flat_e = top_e.reshape(-1)                             # (n*k,)
+    order = torch.sort(flat_e, stable=True).indices
+    counts = torch.bincount(flat_e, minlength=E)           # tokens per expert
+    starts = torch.cumsum(counts, 0) - counts              # offset per expert
+    rank_sorted = torch.arange(n * k, device=dev) - starts[flat_e[order]]
+    pos_in_e = torch.empty_like(rank_sorted).index_put_((order,),
+                                                        rank_sorted)
+    keep = pos_in_e < C                                    # capacity drop
+    dest = torch.where(keep, flat_e * C + pos_in_e,
+                       torch.full_like(pos_in_e, E * C))   # E*C: drop slot
+    token_idx = torch.arange(n, device=dev).repeat_interleave(k)
+    buf = xt.new_zeros((E * C + 1, d)).index_put((dest,), xt[token_idx])
+    return buf[:-1].reshape(E, C, d), dest, keep, token_idx
+
+
+def route(params: dict, xt: torch.Tensor, cfg: ModelConfig):
+    """The f32 router: ``(logits, probs, top_w, top_e)`` of tokens (N, d),
+    top_w renormalised over the k chosen experts."""
+    logits = xt.float() @ params["router"]["w"]
+    probs = torch.softmax(logits, dim=-1)
+    top_w, top_e = torch.topk(probs, cfg.moe.top_k, dim=-1)
+    top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
+    return logits, probs, top_w, top_e
+
+
+def moe_mlp(params: dict, x: torch.Tensor, cfg: ModelConfig,
+            min_capacity: int = 0, with_aux: bool = True
+            ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """x: (B, S, d) -> (out (B, S, d), aux_loss f32 scalar, or None
+    without ``with_aux``: decode drops it, which the JAX package's compiler
+    does for it).  The expert capacity is the JAX package's, raised to
+    ``min_capacity``."""
+    m = cfg.moe
+    if m.dispatch_groups > 1:
+        raise NotImplementedError(
+            "dispatch_groups > 1 (shard-local MoE dispatch) belongs to the "
+            "distributed slice (ROADMAP.md, queue 1)")
+    B, S, d = x.shape
+    N = B * S
+    E, k = m.n_experts, m.top_k
+    C = max(_capacity(N, m), min_capacity)
+    xt = x.reshape(N, d)
+
+    logits, probs, top_w, top_e = route(params, xt, cfg)
+    buf, dest, keep, _ = _dispatch_one(xt, top_e, E, k, C)
+
+    # ---- batched expert MLP: (E, C, d) x (E, d, ff)
+    ex = params["experts"]
+    h = L.activation(cfg.activation)(torch.bmm(buf, ex["gate"])) \
+        * torch.bmm(buf, ex["up"])
+    out_buf = torch.bmm(h, ex["down"])                     # (E, C, d)
+
+    # ---- gather back and combine, term by term in assignment order
+    gathered = out_buf.reshape(E * C, d)[torch.clamp(dest, max=E * C - 1)]
+    gathered = torch.where(keep[:, None], gathered,
+                           torch.zeros((), dtype=gathered.dtype,
+                                       device=x.device))
+    terms = (gathered * top_w.reshape(-1)[:, None].to(gathered.dtype)
+             ).reshape(N, k, d)
+    out = terms[:, 0]
+    for j in range(1, k):
+        out = out + terms[:, j]
+    out = out.reshape(B, S, d).to(x.dtype)
+
+    if "shared" in params:
+        out = out + L.mlp(params["shared"], x, cfg.activation)
+
+    if not with_aux:
+        return out, None
+    # ---- aux losses (f32)
+    me = probs.mean(dim=0)                                 # mean router prob
+    ce = torch.bincount(top_e.reshape(-1), minlength=E).float() / (N * k)
+    load_balance = E * torch.sum(me * ce)
+    z_loss = torch.mean(torch.square(torch.logsumexp(logits, dim=-1)))
+    aux = m.router_aux_weight * (load_balance + 0.001 * z_loss)
+    return out, aux

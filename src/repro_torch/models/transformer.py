@@ -1,6 +1,8 @@
-"""The language model, dense and SSM families: the port of the JAX
+"""The language model, dense, MoE and SSM families: the port of the JAX
 package's ``repro.models.transformer`` for ``[attn + mlp] x L`` stacks
-(h2o-danube) and ``[mamba2] x L`` stacks (mamba2-780m).
+(h2o-danube; MLA attention: minicpm3), ``[attn + moe] x L`` stacks with an
+optional dense prefix (qwen3-moe, kimi-k2) and ``[mamba2] x L`` stacks
+(mamba2-780m).
 
 The parameter tree is the JAX package's exactly: nested dicts whose layer
 stack is one leading dimension of each leaf (``blocks/mlp/up/w`` is
@@ -10,8 +12,8 @@ optimizer, the clip and the consensus act leaf by leaf on whole stacks.
 ``_scan_blocks`` is a Python loop over the layers; with ``remat`` each layer
 runs under ``torch.utils.checkpoint``.
 
-Other families (MoE, hybrid, audio, vision) and MLA attention raise
-``NotImplementedError``: they are queued in ROADMAP.md.
+The hybrid, audio and vision families raise ``NotImplementedError``: they
+are queued in ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -26,39 +28,43 @@ from repro_torch import tree as TR
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as S
 
 Params = Dict[str, Any]
 
 
 def require_ported(cfg: ModelConfig) -> None:
-    """Raise for a family or attention type the port does not have."""
-    if cfg.family not in ("dense", "ssm"):
+    """Raise for a family the port does not have."""
+    if cfg.family not in ("dense", "moe", "ssm"):
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.arch_id}) is not ported yet: the "
-            "port has the dense and SSM families (ROADMAP.md, queue 1, "
-            "item 2)")
-    if cfg.attn_type == "mla":
-        raise NotImplementedError(
-            f"MLA attention ({cfg.arch_id}) is not ported yet (ROADMAP.md, "
-            "queue 1, item 2)")
+            "port has the dense (GQA and MLA), MoE and SSM families "
+            "(ROADMAP.md, queue 1, item 2)")
 
 
 # ------------------------------------------------------------------- init
 
-def _dense_block_init(gen, cfg: ModelConfig, lead: tuple, device) -> Params:
+def _dense_block_init(gen, cfg: ModelConfig, lead: tuple, device,
+                      use_moe: bool = False) -> Params:
     dt = L.dtype_of(cfg.param_dtype)
-    return {"ln1": L.rmsnorm_init(cfg.d_model, dt, lead, device),
-            "ln2": L.rmsnorm_init(cfg.d_model, dt, lead, device),
-            "attn": A.gqa_init(gen, cfg, lead, device),
-            "mlp": L.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.gated_mlp, dt,
-                              lead, device)}
+    p = {"ln1": L.rmsnorm_init(cfg.d_model, dt, lead, device),
+         "ln2": L.rmsnorm_init(cfg.d_model, dt, lead, device),
+         "attn": (A.mla_init(gen, cfg, lead, device)
+                  if cfg.attn_type == "mla"
+                  else A.gqa_init(gen, cfg, lead, device))}
+    if use_moe:
+        p["moe"] = MOE.moe_init(gen, cfg, lead, device)
+    else:
+        p["mlp"] = L.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.gated_mlp, dt,
+                              lead, device)
+    return p
 
 
 def init_params(gen: torch.Generator, cfg: ModelConfig, lead: tuple = (),
                 device=None) -> Params:
-    """Random parameters (dense and SSM families).  ``lead`` prefixes every
-    leaf with stacked independent draws: ``(n_agents,)`` gives the
+    """Random parameters (dense, MoE and SSM families).  ``lead`` prefixes
+    every leaf with stacked independent draws: ``(n_agents,)`` gives the
     agent-stacked tree.  ``gen`` must live on ``device``."""
     require_ported(cfg)
     dt = L.dtype_of(cfg.param_dtype)
@@ -73,6 +79,13 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, lead: tuple = (),
     if cfg.family == "ssm":
         p["blocks"] = {"ln1": L.rmsnorm_init(cfg.d_model, dt, stack, device),
                        "mix": S.mamba_init(gen, cfg, stack, device)}
+    elif cfg.family == "moe":
+        nd = cfg.moe.n_dense_layers
+        if nd:
+            p["dense_blocks"] = _dense_block_init(gen, cfg, lead + (nd,),
+                                                  device)
+        p["blocks"] = _dense_block_init(gen, cfg, lead + (cfg.n_layers - nd,),
+                                        device, use_moe=True)
     else:
         p["blocks"] = _dense_block_init(gen, cfg, stack, device)
     return p
@@ -82,9 +95,15 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, lead: tuple = (),
 
 def _dense_block(bp, x, positions, cfg: ModelConfig, window: int):
     h = L.rmsnorm(bp["ln1"], x, cfg.norm_eps)
-    h = A.self_attention(bp["attn"], h, positions, cfg, True, window)
+    if cfg.attn_type == "mla":
+        h = A.mla_attention(bp["attn"], h, positions, cfg)
+    else:
+        h = A.self_attention(bp["attn"], h, positions, cfg, True, window)
     x = x + h
     h = L.rmsnorm(bp["ln2"], x, cfg.norm_eps)
+    if "moe" in bp:
+        h, aux = MOE.moe_mlp(bp["moe"], h, cfg)
+        return x + h, aux
     return x + L.mlp(bp["mlp"], h, cfg.activation), 0.0
 
 
@@ -146,7 +165,11 @@ def forward_features(params: Params, batch: Dict[str, torch.Tensor],
             return _ssm_block(bp, h, cfg)
         return _dense_block(bp, h, positions, cfg, window)
 
-    x, aux = _scan_blocks(params["blocks"], block, x, remat)
+    aux = 0.0
+    if "dense_blocks" in params:
+        x, aux = _scan_blocks(params["dense_blocks"], block, x, remat)
+    x, a = _scan_blocks(params["blocks"], block, x, remat)
+    aux = aux + a
     x = L.grad_dtype_barrier(x)          # keep backward in compute dtype
     x = L.rmsnorm(params["ln_f"], x, cfg.norm_eps)
     return x, aux

@@ -1,7 +1,11 @@
-"""The port's single-token decode (models/decode.py, the KV cache of
-models/attention.py) against the JAX package's ``repro.models.decode``, on
-the smoke configs of h2o-danube-1.8b (dense, sliding window) and
-mamba2-780m (SSM), from the JAX package's initial weights.
+"""The port's single-token decode (models/decode.py, the KV and latent
+caches of models/attention.py) against the JAX package's
+``repro.models.decode``, on the smoke configs of h2o-danube-1.8b (dense,
+sliding window), mamba2-780m (SSM), qwen3-moe-30b-a3b and kimi-k2-1t-a32b
+(MoE; kimi-k2 with a dense prefix layer and a shared expert) and
+minicpm3-4b (MLA), from the JAX package's initial weights.  MoE decode is
+compared in f32 only: in bf16 a one-ulp difference in a hidden state can
+move a router's top-k choice.
 
 Tolerances: f32 rtol 1e-4 / atol 1e-5 over 20 steps (the same arithmetic,
 products summed in another order by XLA and PyTorch); bf16 rtol 2e-2 with
@@ -24,10 +28,12 @@ from repro_torch.configs import registry as REG  # noqa: E402
 from repro_torch.convert import params_from_numpy  # noqa: E402
 from repro_torch.models import attention as A  # noqa: E402
 from repro_torch.models import decode as D  # noqa: E402
+from repro_torch.models.moe import no_drop  # noqa: E402
 from repro_torch.models import ssm as S  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 
 DENSE, SSM = "h2o-danube-1.8b", "mamba2-780m"
+QWEN, KIMI, MLA = "qwen3-moe-30b-a3b", "kimi-k2-1t-a32b", "minicpm3-4b"
 F32 = dict(rtol=1e-4, atol=1e-5)
 #: the JAX package's steps, compiled once per config (eager JAX takes
 #: ~0.5 s a step here)
@@ -81,7 +87,7 @@ def tree_equal(a, b):
     (DENSE, None, 128),       # window 64 < max_len: a ring of 64
     (DENSE, 0, 48),           # no window at all
     (DENSE, 16, 48),          # window override
-    (SSM, None, 48)])
+    (SSM, None, 48), (QWEN, None, 32), (KIMI, None, 32), (MLA, None, 32)])
 def test_init_cache_tree_matches_jax(arch, window_override, max_len):
     cfg, jcfg = configs(arch, "bfloat16")
     jc = jax.eval_shape(lambda: JD.init_cache(jcfg, 3, max_len,
@@ -93,14 +99,15 @@ def test_init_cache_tree_matches_jax(arch, window_override, max_len):
                        mine) == want
     assert all(float(l.abs().sum()) == 0 for l in TR.leaves(mine))
     cache = mine["blocks"]
-    assert type(cache) is (S.MambaCache if arch == SSM else A.KVCache)
+    assert type(cache) is {SSM: S.MambaCache, MLA: A.MLACache}.get(
+        arch, A.KVCache)
+    assert ("dense_blocks" in mine) == (arch == KIMI)
     if arch == DENSE:                # k and v are two tensors, not one
         assert cache.k.data_ptr() != cache.v.data_ptr()
 
 
 def test_other_families_do_not_decode():
-    for arch in ("recurrentgemma-9b", "qwen3-moe-30b-a3b", "minicpm3-4b",
-                 "whisper-tiny"):
+    for arch in ("recurrentgemma-9b", "phi-3-vision-4.2b", "whisper-tiny"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             D.init_cache(REG.get_smoke_config(arch), 1, 8)
 
@@ -109,7 +116,9 @@ def test_other_families_do_not_decode():
 
 @pytest.mark.parametrize("arch,dtype,window_override", [
     (DENSE, "float32", 8), (DENSE, "bfloat16", 8), (DENSE, "float32", None),
-    (SSM, "float32", None), (SSM, "bfloat16", None)])
+    (SSM, "float32", None), (SSM, "bfloat16", None), (QWEN, "float32", None),
+    (KIMI, "float32", None), (MLA, "float32", None), (MLA, "bfloat16", None),
+    (MLA, "float32", 8)])
 def test_decode_step_matches_jax(arch, dtype, window_override):
     """20 steps from an empty cache: logits at every step and the cache at
     the end.  With a window of 8 the ring wraps twice."""
@@ -138,16 +147,18 @@ def test_decode_step_leaves_its_cache_as_it_was():
         assert tree_equal(c, before)
 
 
-@pytest.mark.parametrize("arch", [DENSE, SSM])
+@pytest.mark.parametrize("arch", [DENSE, SSM, QWEN, KIMI, MLA])
 def test_decode_matches_the_forward(arch):
     """Every position's decode logits against the full-sequence forward,
-    f32, past a ring wrap for the dense model (window override 16)."""
+    f32, past a ring wrap for the dense model (window override 16); the
+    MoE forward with the capacity of every token (decode drops none)."""
     cfg, _, p, _ = models(arch)
     wo = 16 if arch == DENSE else None
     toks = tt(tokens(cfg, (2, 64)))
     dec, _ = D.prefill_cache(p, D.init_cache(cfg, 2, 64, wo), toks, 0, cfg,
                              wo, all_logits=True)
-    fwd, _ = T.forward(p, {"tokens": toks}, cfg, window_override=wo)
+    fwd, _ = T.forward(p, {"tokens": toks}, no_drop(cfg),
+                       window_override=wo)
     assert dec.shape == fwd.shape == (2, 64, cfg.vocab)
     np.testing.assert_allclose(dec.numpy(), fwd.numpy(), **F32)
 
@@ -155,7 +166,8 @@ def test_decode_matches_the_forward(arch):
 # ---------------------------------------------------- prefill + ragged
 
 @pytest.mark.parametrize("arch,dtype", [(DENSE, "bfloat16"),
-                                        (SSM, "bfloat16"), (SSM, "float32")])
+                                        (SSM, "bfloat16"), (SSM, "float32"),
+                                        (KIMI, "float32"), (MLA, "bfloat16")])
 def test_prefill_cache_is_stepwise_decode_bit_for_bit(arch, dtype):
     """Also in chunks from a running offset (pos0 > 0), as the scheduler
     prefills; and the JAX package's last logits."""
@@ -174,7 +186,7 @@ def test_prefill_cache_is_stepwise_decode_bit_for_bit(arch, dtype):
     compare(last, jlast, dtype)
 
 
-@pytest.mark.parametrize("arch", [DENSE, SSM])
+@pytest.mark.parametrize("arch", [DENSE, SSM, KIMI, MLA])
 def test_ragged_decode_at_one_position_is_decode_step(arch):
     cfg, _, p, _ = models(arch, "bfloat16")
     _, cache = D.prefill_cache(p, D.init_cache(cfg, 2, 32),
@@ -191,7 +203,8 @@ def test_ragged_decode_at_one_position_is_decode_step(arch):
 
 @pytest.mark.parametrize("arch,dtype,window_override", [
     (DENSE, "float32", 8), (DENSE, "bfloat16", None), (SSM, "float32", None),
-    (SSM, "bfloat16", None)])
+    (SSM, "bfloat16", None), (QWEN, "float32", None), (KIMI, "float32", None),
+    (MLA, "float32", None), (MLA, "bfloat16", None)])
 def test_ragged_decode_at_mixed_positions_matches_jax(arch, dtype,
                                                       window_override):
     """Three rows prefilled to depths 3, 9 and 14 (past the ring of 8 for
@@ -227,7 +240,7 @@ def test_ragged_decode_at_mixed_positions_matches_jax(arch, dtype,
         compare(a, b, dtype)
 
 
-@pytest.mark.parametrize("arch", [DENSE, SSM])
+@pytest.mark.parametrize("arch", [DENSE, SSM, QWEN, KIMI, MLA])
 def test_a_row_does_not_see_its_neighbours(arch):
     """Row 0 of a batch decodes to the same bits whatever rows 1-3 hold
     (same batch size, other tokens, positions and caches): the property
@@ -245,3 +258,29 @@ def test_a_row_does_not_see_its_neighbours(arch):
         out.append((lg[0], TR.tree_map(lambda l: l[:, 0], c)))
     assert torch.equal(out[0][0], out[1][0])
     assert tree_equal(out[0][1], out[1][1])
+
+
+def test_moe_decode_at_16_slots_never_drops():
+    """16 slots, 16 experts top 2, qwen3-moe's capacity factor (1.25): the
+    capacity of 16 tokens is 8.  With one token at one position in every
+    slot, every row routes to the same two experts, 16 assignments each;
+    decode keeps all of them, as the JAX package's per-slot decode does
+    (logits against its ragged decode, f32; at the capacity of 8, half
+    the rows would lose their experts' output)."""
+    cfg, jcfg = configs(QWEN)
+    m = dict(cfg.moe.__dict__, n_experts=16, top_k=2, capacity_factor=1.25)
+    cfg = cfg.replace(moe=cfg.moe.__class__(**m))
+    jcfg = jcfg.replace(moe=jcfg.moe.__class__(**m))
+    jp = jax.tree.map(np.asarray, JT.init_params(jax.random.key(0), jcfg))
+    p = params_from_numpy(jp, "cpu")
+    from repro_torch.models import moe as M
+    assert M._capacity(16, cfg.moe) == 8
+    toks = np.full((16, 1), 7, np.int32)
+    pos = np.zeros(16, np.int32)
+    jl, _ = jax_ragged(jax.tree.map(jnp.asarray, jp),
+                       JD.init_cache(jcfg, 16, 8), jnp.asarray(toks),
+                       jnp.asarray(pos), jcfg, None)
+    lg, _ = D.decode_step_ragged(p, D.init_cache(cfg, 16, 8), tt(toks),
+                                 tt(pos), cfg)
+    compare(lg, jl)
+    assert torch.equal(lg[0], lg[15])

@@ -14,6 +14,7 @@ from repro_torch.device import resolve_device  # noqa: E402
 from repro_torch.experiments import exp1_quadratic as E1  # noqa: E402
 from repro_torch.experiments import exp2_federated as E  # noqa: E402
 from repro_torch.experiments import exp3_faults as E3  # noqa: E402
+from repro_torch.experiments import kernel_bench as KB  # noqa: E402
 from repro_torch.launch import serve as LS  # noqa: E402
 from repro_torch.launch import train as LT  # noqa: E402
 
@@ -85,6 +86,9 @@ def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
             main(["--out", "", "--metrics-out", ""])
         with pytest.raises(RuntimeError, match="no CUDA device"):
             run()
+    for call in (lambda: KB.rows(), lambda: KB.main([])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         LT.run_training(steps=1, seq=8, batch_per_agent=1)
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -113,6 +113,30 @@ def test_dense_init_is_seeded_and_truncated():
     assert not torch.equal(a[0], a[1])
 
 
+@pytest.mark.parametrize("max_elements", [64 * 8 * 4, 8 * 4, 16, 3, 1])
+def test_sliced_init_is_one_draw(max_elements, monkeypatch):
+    """A leaf past ``MAX_DRAW_ELEMENTS`` is drawn slice by slice along its
+    leading axes into a leaf in its own dtype; on the CPU the numbers are
+    those of one draw of the whole leaf, bit for bit (dense and embedding
+    inits; the embedding's normal draw fills 16 numbers at a time, so its
+    slices of 48 x 16 and 16 elements)."""
+    def dense():
+        return L.dense_init(torch.Generator().manual_seed(3), 64, 8, 4,
+                            dtype=torch.bfloat16, lead=(3, 2))
+
+    def embed():
+        return L.embed_init(torch.Generator().manual_seed(3), 48, 16,
+                            torch.bfloat16, (3,))["table"]
+
+    for fn in ((dense, embed) if max_elements % 16 == 0 else (dense,)):
+        whole = fn()
+        with monkeypatch.context() as m:
+            m.setattr(L, "MAX_DRAW_ELEMENTS", max_elements)
+            sliced = fn()
+        assert sliced.dtype == torch.bfloat16
+        assert torch.equal(whole.view(torch.int16), sliced.view(torch.int16))
+
+
 # --------------------------------------------------------------- attention
 
 def _qkv(B=2, S=256, H=4, G=2, hd=16, seed=0):

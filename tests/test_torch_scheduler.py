@@ -3,8 +3,10 @@
 the properties the JAX package's serving tests pin: validation, mid-flight
 admission bit-equal to solo runs, Engine.generate bit-equal to the
 scheduler run alone, the record key sets, and phase columns that tile the
-step.  Models: the smoke configs of h2o-danube-1.8b and mamba2-780m, from
-the JAX package's initial weights.
+step.  Models: the smoke configs of h2o-danube-1.8b, mamba2-780m,
+qwen3-moe-30b-a3b and kimi-k2-1t-a32b (MoE: the two-stack cache of a
+dense prefix) and minicpm3-4b (MLA: the latent cache), from the JAX
+package's initial weights.
 
 The port against itself (solo against packed, the engine against the
 scheduler): bit for bit, in the configs' bf16.  The port against the JAX
@@ -37,7 +39,8 @@ from repro_torch.serving.scheduler import (  # noqa: E402
     masked_decode)
 from repro_torch.models import decode as D  # noqa: E402
 
-ARCHS = ("h2o-danube-1.8b", "mamba2-780m")
+ARCHS = ("h2o-danube-1.8b", "mamba2-780m", "qwen3-moe-30b-a3b",
+         "kimi-k2-1t-a32b", "minicpm3-4b")
 
 
 def models(arch, dtype):

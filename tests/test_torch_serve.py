@@ -1,6 +1,7 @@
 """The port's serving launcher (repro_torch.launch.serve) against the JAX
-package's (repro.launch.serve), end to end on mamba2-780m's and
-h2o-danube-1.8b's smoke configs (bf16) from the JAX initial weights.
+package's (repro.launch.serve), end to end on the smoke configs (bf16) of
+mamba2-780m, h2o-danube-1.8b, qwen3-moe-30b-a3b and minicpm3-4b from the
+JAX initial weights.
 
 * Tier 1: the launcher's default trace (8 requests, Poisson rate 0.7 per
   step, seed 0) through both launchers: the same arrival trace, the same
@@ -51,7 +52,8 @@ def clock_free(path):
             for r in read_jsonl(path)]
 
 
-@pytest.mark.parametrize("arch", ["mamba2-780m", "h2o-danube-1.8b"])
+@pytest.mark.parametrize("arch", ["mamba2-780m", "h2o-danube-1.8b",
+                                  "qwen3-moe-30b-a3b", "minicpm3-4b"])
 def test_launcher_matches_the_jax_launcher(tmp_path, arch):
     from repro.launch.serve import run_traffic as jax_run
     jpath, path = str(tmp_path / "j.jsonl"), str(tmp_path / "p.jsonl")
@@ -161,3 +163,4 @@ def test_port_launcher_passes_the_serve_baseline(tmp_path):
     diffs = R.compare_to_baseline(base, path, R.Tolerance(),
                                   include_timing=False)
     assert diffs and all(d.passed for d in diffs), R.format_report(diffs)
+

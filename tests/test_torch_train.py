@@ -72,6 +72,17 @@ def test_cli_runs_on_the_cpu_when_asked(capsys):
     assert all(np.isfinite(r["loss"]) for r in lines)
 
 
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "minicpm3-4b"])
+def test_cli_trains_the_moe_and_mla_archs(capsys, arch):
+    LT.main(["--device", "cpu", "--smoke", "--arch", arch, "--steps", "2",
+             "--seq", "16", "--batch-per-agent", "1", "--memory-mode",
+             "expsum"])
+    lines = [json.loads(line) for line in
+             capsys.readouterr().out.strip().splitlines()]
+    assert [r["step"] for r in lines] == [0, 1]
+    assert all(np.isfinite(r["loss"]) for r in lines)
+
+
 @pytest.mark.regression
 def test_port_launcher_tracks_golden_baseline(tmp_path):
     raw = str(tmp_path / "raw.jsonl")

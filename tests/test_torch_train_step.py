@@ -1,7 +1,10 @@
 """The port's agent-stacked FrODO step (training/train_step.py) against the
 JAX package's, from the same JAX initial weights and the same token batches
 (h2o-danube-1.8b smoke config at f32, 2 agents, seq 16): 3 steps in each
-memory mode, clip on, collect_metrics on.  Every scalar metric, the
+memory mode, clip on, collect_metrics on; and 2 steps of the MoE family
+(qwen3-moe-30b-a3b, kimi-k2-1t-a32b: the router's aux loss in the loss,
+the f32 router and the stacked expert leaves through the update) and of
+MLA (minicpm3-4b).  Every scalar metric, the
 per-agent losses and the final parameters agree within rtol 1e-4 / atol
 1e-5 (f32 on both sides; XLA and PyTorch sum in other orders, ~1e-6
 relative per step).  The port runs its update both plainly and through
@@ -36,9 +39,10 @@ def batches(cfg, agents, n, seq=16, bpa=2, seed=0):
     return [next(pipe) for _ in range(n)]
 
 
-def run_both(tc_kw, agents=2, steps=3, n_pods=1, use_kernel=(False,)):
-    cfg = REG.get_smoke_config(ARCH).replace(**F32)
-    jcfg = JREG.get_smoke_config(ARCH).replace(**F32)
+def run_both(tc_kw, agents=2, steps=3, n_pods=1, use_kernel=(False,),
+             arch=ARCH):
+    cfg = REG.get_smoke_config(arch).replace(**F32)
+    jcfg = JREG.get_smoke_config(arch).replace(**F32)
     jkw = dict(tc_kw)
     if "fault_schedule" in jkw:
         jkw["fault_schedule"] = JFaultSchedule(**jkw["fault_schedule"])
@@ -97,3 +101,15 @@ def test_three_steps_match_jax(mode):
         # memory starts empty, then fills
         assert float(mets[0]["memory_norm"]) == 0.0
         assert float(mets[-1]["memory_norm"]) > 0.0
+
+
+@pytest.mark.parametrize("arch,mode", [
+    ("qwen3-moe-30b-a3b", "expsum"), ("kimi-k2-1t-a32b", "exact"),
+    ("minicpm3-4b", "expsum"), ("minicpm3-4b", "exact")])
+def test_moe_and_mla_steps_match_jax(arch, mode):
+    tc_kw = dict(memory_mode=mode, T=8, K=4, grad_clip=1.0, remat=False,
+                 collect_metrics=True, ce_chunks=4)
+    ref, jparams, out = run_both(tc_kw, steps=2, use_kernel=(True,),
+                                 arch=arch)
+    mets, state = out[True]
+    check(ref, jparams, mets, state)

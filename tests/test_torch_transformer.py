@@ -124,8 +124,57 @@ def test_loss_and_grads_match_jax(dtype, remat, blockwise):
         compare(g, jgl, dtype)
 
 
+MOE_MLA = ("qwen3-moe-30b-a3b", "kimi-k2-1t-a32b", "minicpm3-4b")
+
+
+@pytest.mark.parametrize("arch,remat,blockwise", [
+    ("qwen3-moe-30b-a3b", False, False), ("kimi-k2-1t-a32b", True, False),
+    ("minicpm3-4b", False, False), ("minicpm3-4b", True, True)])
+def test_moe_and_mla_models_match_jax(arch, remat, blockwise):
+    """The MoE family (qwen3-moe; kimi-k2: a dense prefix layer and a
+    shared expert) and MLA attention (minicpm3), f32: the init tree, the
+    features, the summed router aux, the logits, and the loss and
+    gradients of one agent (the blockwise case sets attn_direct_max below
+    the sequence)."""
+    kw = dict(attn_direct_max=16, attn_chunk=16) if blockwise else {}
+    kw.update(param_dtype="float32", compute_dtype="float32")
+    cfg = REG.get_smoke_config(arch).replace(**kw)
+    jcfg = JREG.get_smoke_config(arch).replace(**kw)
+    jp = jax_params(jcfg, seed=1)
+    mine = T.init_params(torch.Generator().manual_seed(0), cfg)
+    assert jax.tree.map(lambda a: a.shape, jp) == \
+        TR.tree_map(lambda a: tuple(a.shape), mine)
+    b = batch(cfg, seed=1)
+    p = params_from_numpy(jp, "cpu")
+    tb = {k: torch.from_numpy(v.copy()) for k, v in b.items()}
+    x, aux = T.forward_features(p, tb, cfg)
+    jx, jaux = JT.forward_features(jax.tree.map(jnp.asarray, jp),
+                                   {"tokens": jnp.asarray(b["tokens"])}, jcfg)
+    compare(x, jx, "float32")
+    compare(torch.as_tensor(aux), jaux, "float32")
+    assert (float(aux) > 0) == (cfg.family == "moe")
+    logits, _ = T.forward(p, tb, cfg)
+    jl, _ = JT.forward(jax.tree.map(jnp.asarray, jp),
+                       {"tokens": jnp.asarray(b["tokens"])}, jcfg)
+    compare(logits, jl, "float32")
+    tc = TS.TrainConfig(remat=remat, ce_chunks=4)
+    (jloss, _), jg = jax.jit(jax.value_and_grad(
+        JTS.make_loss_fn(jcfg, JTS.TrainConfig(remat=remat, ce_chunks=4)),
+        has_aux=True))(jax.tree.map(jnp.asarray, jp),
+                       {k: jnp.asarray(v) for k, v in b.items()})
+    flat, treedef = TR.flatten(p)
+    req = [a.detach().requires_grad_(True) for a in flat]
+    loss, _ = TS.make_loss_fn(cfg, tc)(TR.unflatten(treedef, req), tb)
+    grads = torch.autograd.grad(loss, req)
+    compare(loss, jloss, "float32")
+    jflat = jax.tree.leaves(jg)
+    assert len(jflat) == len(grads)
+    for g, jgl in zip(grads, jflat):
+        compare(g, jgl, "float32")
+
+
 def test_other_families_raise_not_implemented():
-    for arch in ("recurrentgemma-9b", "qwen3-moe-30b-a3b", "minicpm3-4b"):
+    for arch in ("recurrentgemma-9b", "whisper-tiny", "phi-3-vision-4.2b"):
         cfg = REG.get_smoke_config(arch)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             T.init_params(torch.Generator(), cfg)
