@@ -59,19 +59,27 @@ Phases, each printing one JSON line:
    loss, peak memory under 72 GB, kernel vs plain path at 1 layer, seq 512
    (a planted alpha 10% high must fail it), card vs CPU at the f32 smoke
    config; and minicpm3's exact-memory sub-run through the exact kernel;
+   then the vision and audio sub-runs (``llm_train.phi-3-vision-4.2b``,
+   ``llm_train.whisper-tiny``), as the MoE and MLA ones: phi-3-vision at
+   full width with 6 of 32 layers and 576 patch embeddings a sequence, 10
+   steps; whisper-tiny at full width and depth (4 encoder layers over
+   1,500 frames, 4 decoder layers), 20 steps;
 10. serve: the serving launcher (``repro_torch.launch.serve``) on
-    h2o-danube-1.8b, mamba2-780m, qwen3-moe-30b-a3b and minicpm3-4b: its
-    default trace on the card and on the card machine's CPU (smoke
-    configs, f32: equal tokens and step columns); decode
-    (``prefill_cache``, every position's logits) against the
-    full-sequence forward at full width and depth, in bf16 and in f32 (the
-    MoE and MLA models' f32 runs at 4 layers), and with a ring buffer that
-    wraps, where planted faults on copies of the modules' source must fail
-    the same check; traffic at full width and depth (16 requests, or 8 for
-    the MoE and MLA models; 8 slots) with the first requests run alone and
-    ``Engine.generate`` bit-equal to the packed run; tokens/s, TTFT, ms per
-    step by phase and per prefill token, the busy share, peak memory, and
-    one decode step over the full arena beside its weight-read bound;
+    h2o-danube-1.8b, mamba2-780m, qwen3-moe-30b-a3b, minicpm3-4b,
+    phi-3-vision-4.2b and whisper-tiny: its default trace on the card and
+    on the card machine's CPU (smoke configs, f32: equal tokens and step
+    columns); decode (``prefill_cache``, every position's logits; for
+    whisper from the cross K/V that ``encode_for_decode`` wrote) against
+    the full-sequence forward (over the same frames) at full width and
+    depth, in bf16 and in f32 (the MoE and MLA models' f32 runs at 4
+    layers), and with a ring buffer that wraps, where planted faults on
+    copies of the modules' source must fail the same check; traffic at
+    full width and depth (16 requests, or 8 for the MoE, MLA and vision
+    models; 8 slots; each whisper request with its own frames) with the
+    first requests run alone and ``Engine.generate`` bit-equal to the
+    packed run; tokens/s, TTFT, ms per step by phase and per prefill
+    token, the busy share, peak memory, and one decode step over the full
+    arena beside its weight-read bound;
 11. timing: CUDA-event medians of each kernel, its plain version and (exact)
    one library call, beside the memory bound; the Exp 2 ms/step;
 12. profile: torch.profiler device time per launch of each kernel at each
@@ -84,8 +92,9 @@ Phases, each printing one JSON line:
 Then the ``{"kernels": [...]}`` summary line (launches per path: exp2,
 exp1_point, exp3, llm_train, llm_train_exact, llm_train_expsum_bf16acc,
 llm_train_mamba2, llm_train_qwen3_moe, llm_train_minicpm3,
-llm_train_minicpm3_exact and serve_<arch> for the four served models (none
-on the serve paths), each counted from 0 just before the path runs), the
+llm_train_minicpm3_exact, llm_train_phi3_vision, llm_train_whisper and
+serve_<arch> for the six served models (none on the serve paths), each
+counted from 0 just before the path runs), the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Any failed
 check raises, so the script exits non-zero and prints no result.
 """
@@ -658,11 +667,11 @@ def llm_run(dev, **kw):
     return rows, launches, secs, peak, trace
 
 
-def llm_vs_loss(dev, mode, T_, **kw) -> list:
+def llm_vs_loss(dev, mode, T_, seq=LLM_VS_PLAIN["seq"], **kw) -> list:
     """The losses of a short run (LLM_VS_PLAIN) for the kernel vs plain
     checks."""
     rows, *_ = llm_run(dev, n_layers=LLM_VS_PLAIN["n_layers"],
-                       seq=LLM_VS_PLAIN["seq"], memory_mode=mode, T=T_,
+                       seq=seq, memory_mode=mode, T=T_,
                        steps=LLM_VS_PLAIN["steps"], **kw)
     return [r["loss"] for r in rows]
 
@@ -1110,15 +1119,15 @@ LLM_PEAK_LIMIT = 72e9
 LLM_NEW_VS_PLAIN_AGENTS = 1
 
 
-def llm_train_moe_mla(dev) -> dict:
-    """The llm_train phase's sub-runs of the MoE family (qwen3-moe-30b-a3b)
-    and MLA attention (minicpm3-4b): full width with cut depth, the
-    train_4k shape, exp-sum through the kernel (profiled: the kernel's
-    device time at the largest leaf, the busy share); kernel vs plain path
-    at 1 layer, seq 512; card vs the card machine's CPU at the f32 smoke
-    configs; and minicpm3's exact-memory sub-run through the exact kernel.
-    Returns the launches of each path and the kernels' device times at the
-    largest leaves."""
+def llm_train_archs(dev, runs: dict) -> tuple:
+    """The llm_train sub-runs of ``runs`` (arch -> settings, as in
+    LLM_NEW): full width with cut depth, the train_4k shape, exp-sum
+    through the kernel (profiled: the kernel's device time at the largest
+    leaf, the busy share); a falling finite loss, one launch per leaf a
+    step, peak memory under LLM_PEAK_LIMIT; kernel vs plain path at 1
+    layer, seq 512 (a planted alpha 10% high must fail it); card vs the
+    card machine's CPU at the f32 smoke config.  Returns (the launches of
+    each path, the kernel's device times at the largest leaves)."""
     import numpy as np
     import torch
     from repro_torch import tree as TR
@@ -1129,7 +1138,7 @@ def llm_train_moe_mla(dev) -> dict:
     tokens = LLM["agents"] * LLM["batch_per_agent"] * LLM["seq"]
     K_ = TS.TrainConfig().K
     out, launches, kern = {}, {}, {}
-    for arch, run in LLM_NEW.items():
+    for arch, run in runs.items():
         cfg = REG.get_config(arch).replace(n_layers=run["n_layers"])
         smoke = REG.get_smoke_config(arch)
         sizes = {n: (tuple(t.shape), t.element_size(), t.dtype)
@@ -1164,10 +1173,11 @@ def llm_train_moe_mla(dev) -> dict:
         prof = window_profile(trace, p1 - p0 + 1, step_ms[p0:p1 + 1],
                               "expsum_update_kernel", big, n_leaves)
 
-        # kernel vs plain path: 1 layer, seq 512
+        # kernel vs plain path: 1 layer, seq 512 (or the run's vs_plain_seq)
         tol = LLM_LOSS_TOL
         vs_kw = dict(arch=arch, acc_dtype=run["acc_dtype"],
-                     agents=LLM_NEW_VS_PLAIN_AGENTS)
+                     agents=LLM_NEW_VS_PLAIN_AGENTS,
+                     seq=run.get("vs_plain_seq", LLM_VS_PLAIN["seq"]))
         vs = {uk: llm_vs_loss(dev, "expsum", LLM["T"], use_kernel=uk,
                               **vs_kw) for uk in (True, False)}
         ok, err = close_np(vs[True], vs[False], tol)
@@ -1202,11 +1212,14 @@ def llm_train_moe_mla(dev) -> dict:
         launches[run["path"]] = ln
         out[arch] = {
             "arch": arch, "width": {
-                "d_model": cfg.d_model, "n_heads": cfg.n_heads,
-                "n_kv_heads": cfg.n_kv_heads, "head_dim": cfg.hd(),
-                "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+                "family": cfg.family, "d_model": cfg.d_model,
+                "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+                "head_dim": cfg.hd(), "d_ff": cfg.d_ff, "vocab": cfg.vocab,
                 "moe": cfg.moe and cfg.moe.__dict__,
                 "mla": cfg.mla and cfg.mla.__dict__,
+                "n_enc_layers": cfg.n_enc_layers,
+                "n_frames": cfg.n_frames if cfg.family == "audio" else 0,
+                "n_img_tokens": cfg.n_img_tokens,
                 "param_dtype": cfg.param_dtype},
             "n_layers": cfg.n_layers, "reduced": run["reduced"],
             "agents": LLM["agents"], "seq": LLM["seq"],
@@ -1223,6 +1236,7 @@ def llm_train_moe_mla(dev) -> dict:
             "big_leaf": run["big_leaf"], "big_leaf_shape": list(big_shape),
             "expsum_bound_ms_at_big_leaf": big_bytes / HBM_BYTES_PER_S * 1e3,
             "kernel_vs_plain": {"agents": LLM_NEW_VS_PLAIN_AGENTS,
+                                "seq": vs_kw["seq"],
                                 "loss_kernel": vs[True],
                                 "loss_plain": vs[False], "max_abs_err": err,
                                 "planted_alpha_x1.1_max_abs_err": e_pl},
@@ -1237,6 +1251,21 @@ def llm_train_moe_mla(dev) -> dict:
                       "bound_ms_per_step": out[arch][
                           "expsum_bound_ms_per_step"]}
         emit("llm_train." + arch, nvidia_smi=nvidia_smi(), **out[arch])
+
+    return launches, kern
+
+
+def llm_train_moe_mla(dev) -> dict:
+    """The llm_train phase's sub-runs of the MoE family (qwen3-moe-30b-a3b)
+    and MLA attention (minicpm3-4b), as ``llm_train_archs`` runs them, and
+    minicpm3's exact-memory sub-run through the exact kernel.  Returns the
+    launches of each path and the kernels' device times at the largest
+    leaves."""
+    import numpy as np
+    from repro_torch.configs import registry as REG
+
+    train = functools.partial(llm_run, dev)
+    launches, kern = llm_train_archs(dev, LLM_NEW)
 
     # ----------------------- minicpm3: exact memory through the exact kernel
     ex = LLM_MLA_EXACT
@@ -1262,11 +1291,53 @@ def llm_train_moe_mla(dev) -> dict:
     return {"launches": launches, "kernels": kern}
 
 
+# ------------------------------- the vision and encoder-decoder audio families
+#: the llm_train sub-runs of phi-3-vision-4.2b (vision: 576 patch embeddings
+#: scattered at the first positions of every sequence) and whisper-tiny
+#: (audio: a 4-layer encoder over 1,500 frame embeddings, a 4-layer decoder
+#: with cross attention), as llm_train_archs runs them: full width, the
+#: train_4k shape, 2 agents x 2 sequences, exp-sum K = 8 with f32
+#: accumulators through the exp-sum kernel.  whisper-tiny runs at full
+#: depth, 20 steps, its profile window late so that ms/step is the median
+#: of steps 1-15.  phi-3-vision peaked at 60.3 GB with 5 layers on an H100
+#: (700 W); a layer adds 8.15 GB of parameters, gradients and accumulators
+#: for two agents, so 6 layers stay under LLM_PEAK_LIMIT.  phi-3-vision's
+#: kernel vs plain path runs at seq 1024
+#: (576 patch and 448 token positions): at seq 512 every position is a
+#: patch embedding, and on an H100 (700 W) the plain path with alpha 10%
+#: high moved the loss by 4.1e-4 there, inside the limit of 1.1e-3.
+VLM_ARCH, AUDIO_ARCH = "phi-3-vision-4.2b", "whisper-tiny"
+LLM_VLM_AUDIO = {
+    VLM_ARCH: dict(path="llm_train_phi3_vision", n_layers=6, steps=10,
+                   profile=(6, 7), acc_dtype="float32", vs_plain_seq=1024,
+                   big_leaf="blocks/mlp/up/w", reduced={
+                       "n_layers": "32 -> 6: two agents' exp-sum state (8 "
+                                   "f32 accumulators of 2 x 876 M "
+                                   "parameters, 56 GB) fits one card",
+                       "global_batch": "256 -> 4 (2 agents x 2 sequences of "
+                                       "train_4k's 4096)"}),
+    AUDIO_ARCH: dict(path="llm_train_whisper", n_layers=4, steps=20,
+                     profile=(16, 17), acc_dtype="float32",
+                     big_leaf="embed/table", reduced={
+                         "global_batch": "256 -> 4 (2 agents x 2 sequences "
+                                         "of train_4k's 4096)"}),
+}
+
+
+def llm_train_vlm_audio(dev) -> dict:
+    """The llm_train phase's sub-runs of the vision (phi-3-vision-4.2b) and
+    audio (whisper-tiny) families, as ``llm_train_archs`` runs them.
+    Returns the launches of each path and the kernel's device times at
+    the largest leaves."""
+    launches, kern = llm_train_archs(dev, LLM_VLM_AUDIO)
+    return {"launches": launches, "kernels": kern}
+
+
 # ---------------------------------------------------------------- serving
 #: the serve phase drives repro_torch.launch.serve (the scheduler) and the
-#: decode path on both families the port serves
+#: decode path on every family the port serves
 SERVE_ARCHS = ("h2o-danube-1.8b", "mamba2-780m", "qwen3-moe-30b-a3b",
-               "minicpm3-4b")
+               "minicpm3-4b", "phi-3-vision-4.2b", "whisper-tiny")
 #: launch/serve's default trace (card against CPU, smoke configs in f32)
 SERVE_SMOKE = dict(n_requests=8, rate=0.7, prompt_len_range=(4, 12),
                    new_tokens_range=(3, 8), max_slots=4, prefill_chunk=8,
@@ -1274,7 +1345,9 @@ SERVE_SMOKE = dict(n_requests=8, rate=0.7, prompt_len_range=(4, 12),
 #: traffic at full width and full depth, and how many of its first
 #: requests run alone, each in a fresh scheduler, and must give the packed
 #: run's tokens bit for bit.  The MoE and MLA models serve a shorter trace
-#: (their decode steps launch 3-4 times the kernels)
+#: (their decode steps launch 3-4 times the kernels), and so does
+#: phi-3-vision, whose decode is the dense branch that h2o-danube drives
+#: at full depth; each whisper-tiny request carries its own frames
 SERVE_FULL = dict(n_requests=16, rate=0.7, prompt_len_range=(16, 128),
                   new_tokens_range=(16, 64), max_slots=8, prefill_chunk=32,
                   token_budget=128, max_len=256, seed=0)
@@ -1283,7 +1356,9 @@ SERVE_SHORT = dict(SERVE_FULL, n_requests=8, prompt_len_range=(16, 48),
 SERVE_TRAFFIC = {"h2o-danube-1.8b": (SERVE_FULL, 4),
                  "mamba2-780m": (SERVE_FULL, 4),
                  "qwen3-moe-30b-a3b": (SERVE_SHORT, 2),
-                 "minicpm3-4b": (SERVE_SHORT, 2)}
+                 "minicpm3-4b": (SERVE_SHORT, 2),
+                 "phi-3-vision-4.2b": (SERVE_SHORT, 2),
+                 "whisper-tiny": (SERVE_FULL, 4)}
 #: scheduler steps under the profiler (busy share)
 SERVE_PROFILE = (12, 15)
 #: serve.step columns that do not read a clock
@@ -1316,15 +1391,24 @@ DVF_F32_LAYERS = {"qwen3-moe-30b-a3b": 4, "minicpm3-4b": 4}
 # runs at 4 layers; argmax agreeing at 97% of positions in bf16); their
 # limits are 2.7 times that in bf16 and 7-8 times in f32.  Planted: tokens
 # routed to expert 0 dropped in decode 0.078, MLA decode without its rope
-# scores 1.26 (f32).
+# scores 1.26 (f32).  phi-3-vision (MHA, 32 heads of 96, the dense branch)
+# read 0.0625 / 1.3e-5 and whisper-tiny (decoding from its encoded cross
+# K/V, against a forward over the same frames) 0.031 / 5.2e-6, on an H100
+# (NVIDIA H100 80GB HBM3, 700 W); their limits are 2.4 times that in bf16
+# and 7.5-7.7 times in f32.  Planted, f32: whisper's decoder sinusoid one
+# position ahead 0.54, cross V read as K 0.0076, each layer reading the
+# next layer's cross K/V 5.1.
 DVF_TOL = {"h2o-danube-1.8b": {"bfloat16": 0.15, "float32": 1e-4},
            "ring": {"bfloat16": 0.15, "float32": 1e-4},
            "mamba2-780m": {"bfloat16": 0.6, "float32": 5e-4},
            "qwen3-moe-30b-a3b": {"bfloat16": 0.25, "float32": 1e-4},
-           "minicpm3-4b": {"bfloat16": 0.25, "float32": 1e-4}}
+           "minicpm3-4b": {"bfloat16": 0.25, "float32": 1e-4},
+           "phi-3-vision-4.2b": {"bfloat16": 0.15, "float32": 1e-4},
+           "whisper-tiny": {"bfloat16": 0.075, "float32": 4e-5}}
 #: planted faults, each a one-line change to a copy of a module's source
-#: (decode's ``A``, attention, ``S``, ssm, or ``MOE``, moe) that the f32
-#: decode-vs-forward check must catch: (module, run, old, new)
+#: (decode's ``A``, attention, ``S``, ssm, or ``MOE``, moe; ``D``: decode
+#: itself) that the f32 decode-vs-forward check must catch: (module, run,
+#: old, new)
 DVF_PLANTED = {
     "rope_query_off_by_one": (
         "A", "h2o-danube-1.8b",
@@ -1344,6 +1428,16 @@ DVF_PLANTED = {
         "A", "minicpm3-4b",
         "+ torch.matmul(q_rope.view(B, H, -1), k_rope.transpose(1, 2))",
         ""),
+    "audio_sinusoid_off_by_one": (
+        "D", "whisper-tiny", "L.sinusoid_at(pos, cfg.d_model)",
+        "L.sinusoid_at(pos + 1, cfg.d_model)"),
+    "cross_v_read_as_cross_k": (
+        "D", "whisper-tiny",
+        'A._direct_attn(q, bp["cross_k"], bp["cross_v"], bias)',
+        'A._direct_attn(q, bp["cross_v"], bp["cross_v"], bias)'),
+    "cross_kv_of_the_next_layer": (
+        "D", "whisper-tiny", "TR.tree_map(lambda t: t[i], xa)",
+        "TR.tree_map(lambda t: t[(i + 1) % cfg.n_layers], xa)"),
 }
 
 
@@ -1384,11 +1478,12 @@ def bench_rows(rows: list, kernel: str) -> dict:
 
 
 def serve_dvf(dev, label, cfg, params, toks, window_override=None,
-              max_len=None) -> tuple:
-    """Decode against forward on the sequences ``toks`` with one model:
-    ``(reading, {planted fault: reading})``; the reading must pass
-    ``DVF_TOL[label]``, each planted fault of ``label`` (f32 runs only)
-    must fail it."""
+              max_len=None, frames=None) -> tuple:
+    """Decode against forward on the sequences ``toks`` (and an audio
+    model's ``frames``, which encode_for_decode turns into the cross K/V
+    decode reads) with one model: ``(reading, {planted fault: reading})``;
+    the reading must pass ``DVF_TOL[label]``, each planted fault of
+    ``label`` (f32 runs only) must fail it."""
     from repro_torch.models import attention as A
     from repro_torch.models import decode as D
     from repro_torch.models import moe as MOE
@@ -1398,13 +1493,18 @@ def serve_dvf(dev, label, cfg, params, toks, window_override=None,
     seq = toks.shape[1]
     max_len = max_len or seq
     dtype = cfg.param_dtype
+    batch = {"tokens": toks}
+    if frames is not None:
+        batch["frames"] = frames
 
-    def gap():
-        dec, _ = D.prefill_cache(
-            params, D.init_cache(cfg, toks.shape[0], max_len,
-                                 window_override, device=dev), toks, 0, cfg,
-            window_override, all_logits=True)
-        fwd, _ = T.forward(params, {"tokens": toks}, MOE.no_drop(cfg),
+    def gap(dm=D):
+        cache = dm.init_cache(cfg, toks.shape[0], max_len, window_override,
+                              device=dev)
+        if frames is not None:
+            cache = dm.encode_for_decode(params, cache, frames, cfg)
+        dec, _ = dm.prefill_cache(params, cache, toks, 0, cfg,
+                                  window_override, all_logits=True)
+        fwd, _ = T.forward(params, batch, MOE.no_drop(cfg),
                            window_override=window_override)
         d = (dec - fwd).abs()
         return {"max_abs_err": float(d.max()),
@@ -1423,11 +1523,14 @@ def serve_dvf(dev, label, cfg, params, toks, window_override=None,
     for name, (mod, run, old, new) in DVF_PLANTED.items():
         if run != label or dtype != "float32":
             continue
-        setattr(D, mod, planted_module(getattr(D, mod), old, new))
-        try:
-            e = gap()
-        finally:
-            D.A, D.S, D.MOE = A, S, MOE
+        if mod == "D":
+            e = gap(planted_module(D, old, new))
+        else:
+            setattr(D, mod, planted_module(getattr(D, mod), old, new))
+            try:
+                e = gap()
+            finally:
+                D.A, D.S, D.MOE = A, S, MOE
         planted[name] = e
         check(e["max_abs_err"] > tol, f"planted fault {name} passes the "
               f"decode vs forward check ({label}, {dtype}): {e}")
@@ -1444,7 +1547,7 @@ def serve_traffic(dev, arch, cfg, params, gen, tmp) -> tuple:
     from repro_torch import tree as TR
     from repro_torch.kernels import frodo_update as KU
     from repro_torch.kernels import ops
-    from repro_torch.launch.serve import run_traffic, traffic
+    from repro_torch.launch.serve import frames_shape, run_traffic, traffic
     from repro_torch.obs.metrics import read_jsonl
     from repro_torch.serving.engine import Engine
     from repro_torch.serving.scheduler import (Scheduler, SchedulerConfig,
@@ -1477,21 +1580,24 @@ def serve_traffic(dev, arch, cfg, params, gen, tmp) -> tuple:
           f"serve {arch}: {len(reqs)} requests done, occupancy "
           f"{max(r['occupancy'] for r in steps)}")
 
-    # the first requests alone, each in a fresh scheduler
+    # the first requests alone, each in a fresh scheduler (an audio
+    # request with its frames)
     trace = [r for rd in traffic(cfg.vocab, **{
         k: trace_kw[k] for k in ("n_requests", "rate", "prompt_len_range",
-                                 "new_tokens_range", "seed")}) for r in rd]
+                                 "new_tokens_range", "seed")},
+        frames_shape=frames_shape(cfg)) for r in rd]
     sc = SchedulerConfig(**sched_kw)
-    for i, (prompt, n_new) in enumerate(trace[:n_solo]):
+    for i, req in enumerate(trace[:n_solo]):
         sch = Scheduler(cfg, params, sc)
-        solo = sch.result(sch.submit(prompt, n_new)).tolist()
+        solo = sch.result(sch.submit(*req)).tolist()
         check(solo == summary["tokens"][i],
               f"serve {arch}: request {i} alone {solo} != packed "
               f"{summary['tokens'][i]}")
     # Engine.generate: request 0 twice in one batch, against alone
-    prompt, n_new = trace[0]
+    prompt, n_new = trace[0][:2]
     out = Engine(cfg, params, **sched_kw).generate(
-        np.stack([prompt, prompt]), n_new)
+        np.stack([prompt, prompt]), n_new,
+        np.stack([trace[0][2]] * 2) if len(trace[0]) == 3 else None)
     check(all(row.tolist() == summary["tokens"][0] for row in out),
           f"serve {arch}: Engine.generate {out.tolist()} != alone "
           f"{summary['tokens'][0]}")
@@ -1511,6 +1617,8 @@ def serve_traffic(dev, arch, cfg, params, gen, tmp) -> tuple:
     dec_ms = cuda_ms(step, reps=10)
     rows_k = device_kernel_us(step)
     dec_dev_ms = sum(us for _, us in rows_k.values()) / 1e3
+    arena_bytes = sum(t.numel() * t.element_size()
+                      for t in TR.leaves(sch.pool.arena))
     del sch
     p0, p1 = SERVE_PROFILE
     decode_steps = [r for r in steps if r["n_decode"] > 0]
@@ -1551,7 +1659,10 @@ def serve_traffic(dev, arch, cfg, params, gen, tmp) -> tuple:
             "slots": n, "position": 100, "ms_events": dec_ms,
             "device_ms": dec_dev_ms if rows_k else None,
             "kernels": sum(c for c, _ in rows_k.values()),
-            "weight_read_bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3},
+            "weight_read_bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3,
+            "arena_bytes": arena_bytes,
+            "weight_and_arena_read_bound_ms": (n_bytes + arena_bytes)
+            / HBM_BYTES_PER_S * 1e3},
         "solo_vs_packed": f"first {n_solo} requests bit-equal",
         "engine_vs_solo": "bit-equal"}
     return out, launches
@@ -1612,15 +1723,18 @@ def serve_phase(dev) -> dict:
         for label, (wo, max_len, seq) in runs.items():
             toks = torch.randint(1, cfg.vocab, (DVF["batch"], seq),
                                  generator=gen, device=dev)
+            frames = (torch.randn((DVF["batch"], cfg.n_frames, cfg.d_model),
+                                  generator=gen, device=dev)
+                      if cfg.family == "audio" else None)
             dvf[f"{label}/bfloat16"], p_ = serve_dvf(
-                dev, label, cfg, params, toks, wo, max_len)
+                dev, label, cfg, params, toks, wo, max_len, frames)
             planted.update(p_)
             if arch not in DVF_F32_LAYERS:
                 cfg32 = cfg.replace(param_dtype="float32",
                                     compute_dtype="float32")
                 params32 = TR.tree_map(lambda t: t.float(), params)
                 dvf[f"{label}/float32"], p_ = serve_dvf(
-                    dev, label, cfg32, params32, toks, wo, max_len)
+                    dev, label, cfg32, params32, toks, wo, max_len, frames)
                 planted.update(p_)
                 del params32
                 torch.cuda.empty_cache()
@@ -1823,6 +1937,8 @@ def main() -> int:
     llm["launches"]["llm_train_mamba2"] = llm_train_mamba2(dev)
     new = llm_train_moe_mla(dev)
     llm["launches"].update(new["launches"])
+    vla = llm_train_vlm_audio(dev)
+    llm["launches"].update(vla["launches"])
     serve = serve_phase(dev)
     per_path = {name: {"exp2": launches_exp2[name],
                        "exp1_point": launches_exp1[name],
@@ -2015,6 +2131,7 @@ def main() -> int:
          **{k: es["float32"][k] for k in keys},
          "llm_bf16g_f32acc_at_mlp_up": llm["expsum"],
          "llm_moe_mla_largest_leaves": new["kernels"],
+         "llm_vlm_audio_largest_leaves": vla["kernels"],
          "bench": bench_rows(bench, "expsum")},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -2,11 +2,11 @@
 port of the JAX package's ``repro.launch.serve``.
 
 Drives ``serving.scheduler.Scheduler`` with a seeded Poisson arrival
-process: request arrivals, prompt lengths, prompt tokens and generation
-lengths are all drawn from one ``numpy`` generator, in the JAX launcher's
-order, and time is measured in *scheduler steps*, so a given ``--seed``
-always produces the same admission trace and (greedy decode being
-deterministic) the same tokens.  Runs on the CUDA card unless asked for
+process: request arrivals, prompt lengths, prompt tokens, generation
+lengths and an audio model's frame embeddings are all drawn from one
+``numpy`` generator, in the JAX launcher's order, and time is measured in
+*scheduler steps*, so a given ``--seed`` always produces the same
+admission trace and (greedy decode being deterministic) the same tokens.  Runs on the CUDA card unless asked for
 the CPU:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --smoke \\
@@ -25,10 +25,15 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 def traffic(vocab: int, n_requests: int, rate: float,
             prompt_len_range=(4, 12), new_tokens_range=(3, 8),
-            seed: int = 0) -> List[List[Tuple[Any, int]]]:
-    """The seeded arrival trace: one list per driver round of the
-    ``(prompt, max_new)`` pairs that arrive in it (``Poisson(rate)`` a
-    round, capped at ``n_requests`` in all)."""
+            seed: int = 0, frames_shape: Optional[Tuple[int, int]] = None
+            ) -> List[List[tuple]]:
+    """The seeded arrival trace: for each round of the launcher's loop,
+    the list of requests that arrive in it (``Poisson(rate)`` a round,
+    capped at ``n_requests`` in all), each the arguments of
+    ``Scheduler.submit``: ``(prompt, max_new)``, or with ``frames_shape``
+    (an audio model's ``(n_frames, d_model)``) ``(prompt, max_new,
+    frames)``, the frames drawn from the same generator after the prompt,
+    as the JAX launcher draws them."""
     import numpy as np
     rng = np.random.default_rng(seed)
     rounds, n = [], 0
@@ -40,10 +45,20 @@ def traffic(vocab: int, n_requests: int, rate: float,
             plen = int(rng.integers(*prompt_len_range, endpoint=True))
             n_new = int(rng.integers(*new_tokens_range, endpoint=True))
             prompt = rng.integers(1, vocab, plen).astype(np.int32)
-            arrivals.append((prompt, n_new))
+            if frames_shape is None:
+                arrivals.append((prompt, n_new))
+            else:
+                arrivals.append((prompt, n_new, rng.normal(
+                    size=frames_shape).astype(np.float32)))
             n += 1
         rounds.append(arrivals)
     return rounds
+
+
+def frames_shape(cfg) -> Optional[Tuple[int, int]]:
+    """An audio model's per-request frames, ``(n_frames, d_model)``; None
+    for a model without them."""
+    return (cfg.n_frames, cfg.d_model) if cfg.family == "audio" else None
 
 
 def load_model(arch: str, smoke: bool, seed: int, device=None,
@@ -116,7 +131,7 @@ def run_traffic(arch: str = "mamba2-780m", smoke: bool = True,
                                     window_override=window_override),
                     sink=sink)
     rounds = traffic(cfg.vocab, n_requests, rate, prompt_len_range,
-                     new_tokens_range, seed)
+                     new_tokens_range, seed, frames_shape(cfg))
     rids = []
     max_occ = 0
     max_queue = 0
@@ -128,7 +143,7 @@ def run_traffic(arch: str = "mamba2-780m", smoke: bool = True,
         i = 0
         while i < len(rounds) or sch.has_work:
             if i < len(rounds):
-                rids += [sch.submit(p, n) for p, n in rounds[i]]
+                rids += [sch.submit(*r) for r in rounds[i]]
                 i += 1
             if sch.has_work:
                 prof.maybe_start(sch.step_idx)
@@ -174,7 +189,10 @@ def _run_static(args) -> None:
     rng = np.random.default_rng(args.seed)
     prompts = rng.integers(1, cfg.vocab,
                            (args.batch, args.prompt_len)).astype(np.int32)
-    out = eng.generate(prompts, n_new=args.new_tokens)
+    shape = frames_shape(cfg)
+    frames = None if shape is None else rng.normal(
+        size=(args.batch,) + shape).astype(np.float32)
+    out = eng.generate(prompts, n_new=args.new_tokens, frames=frames)
     for i, row in enumerate(out):
         print(f"req{i}: {row.tolist()}")
 

@@ -1,5 +1,6 @@
-"""Single-token decode over a per-layer cache, dense (GQA and MLA), MoE and
-SSM families: the port of the JAX package's ``repro.models.decode``.
+"""Single-token decode over a per-layer cache, for every ported family
+(dense with GQA or MLA, vision, MoE, SSM, audio): the port of the JAX
+package's ``repro.models.decode``.
 
 ``init_cache`` builds the cache tree (stacked along the layer dim to match
 the stacked params; a MoE model with a dense prefix has a ``dense_blocks``
@@ -9,18 +10,24 @@ cache beside ``blocks``) and ``decode_step`` advances one token:
 
 Sliding-window archs (and a ``window_override`` for dense archs) get
 ring-buffer KV caches of window size, MLA a latent cache as long as the
-sequence, SSM O(1) recurrent state.
+sequence, SSM O(1) recurrent state.  The audio family (whisper) has a
+decoder self-attention KV cache and each layer's cross-attention K/V of
+the encoder output, which ``encode_for_decode`` writes once per sequence
+and every step reads unchanged.  The vision family decodes text tokens
+through the dense branch.
 
-``pos`` is one position per row, ``(B,)``, or one int for every row: the
-JAX package ``vmap``s its scalar-position step over the slots for ragged
-decode (``decode_step_ragged``); here per-row RoPE positions, cache write
-indices and masks do the same in one batched call.  So a MoE layer routes
-all B rows together where the JAX package routes each alone, and it takes
-an expert capacity of at least B: a token's k experts are distinct, so no
-row is ever dropped, as none is when each routes alone.  Every function
-returns a new cache and leaves the one it was given as it was.  The
-hybrid, audio and vision families raise ``NotImplementedError``
-(ROADMAP.md).
+``pos`` is one int for every row, as in the JAX package's
+``decode_step``, or one position per row, ``(B,)``: the JAX package
+``vmap``s its one-position step over the slots for ragged decode
+(``decode_step_ragged``); here per-row RoPE positions, sinusoids, cache
+write indices and masks do the same in one batched call.  A MoE layer
+routes the B rows of a step together.  At one shared position it takes the
+JAX package's expert capacity for B tokens, so rows past the capacity drop
+where the reference drops them.  With one position per row the reference
+routes each row alone, where a token's k distinct experts always fit, so
+the capacity is raised to at least B and no row drops.  Every function
+returns a new cache and leaves the one it was given as it was.  The hybrid
+family raises ``NotImplementedError`` (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -34,6 +41,7 @@ from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as S
+from repro_torch.models import transformer as T
 from repro_torch.models.transformer import require_ported
 
 Position = Union[int, torch.Tensor]
@@ -50,6 +58,14 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     if cfg.family == "ssm":
         return {"blocks": S.mamba_init_cache(cfg, batch, dt,
                                              (cfg.n_layers,), device)}
+    if cfg.family == "audio":
+        n = cfg.n_layers
+        cross = (n, batch, cfg.n_frames, cfg.n_kv_heads, cfg.hd())
+        return {"blocks": {
+            "self": A.init_cache(cfg, batch, max_len, window, dt, (n,),
+                                 device),
+            "cross_k": torch.zeros(cross, dtype=dt, device=device),
+            "cross_v": torch.zeros(cross, dtype=dt, device=device)}}
 
     def make(n):
         if cfg.attn_type == "mla":
@@ -63,9 +79,25 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     return cache
 
 
+def encode_for_decode(params, cache, frames: torch.Tensor,
+                      cfg: ModelConfig):
+    """Audio: run the encoder over ``frames`` (B, n_frames, d_model) and
+    return a new cache holding every decoder layer's cross-attention K/V
+    of its output (the self-attention cache as it was)."""
+    enc = T.encode(params, frames, cfg)
+    xa = params["blocks"]["xattn"]
+    kv = [T.cross_kv(TR.tree_map(lambda t: t[i], xa), enc)
+          for i in range(cfg.n_layers)]
+    blocks = dict(cache["blocks"])
+    for j, name in enumerate(("cross_k", "cross_v")):
+        blocks[name] = torch.stack([l[j] for l in kv]).to(
+            blocks[name].dtype)
+    return {**cache, "blocks": blocks}
+
+
 # ------------------------------------------------------------ block steps
 
-def _dense_decode_block(bp, c, x, pos, cfg, ctx):
+def _dense_decode_block(bp, c, x, pos, cfg, ctx, per_row: bool):
     h = L.rmsnorm(bp["ln1"], x, cfg.norm_eps)
     if cfg.attn_type == "mla":
         h, c = A.mla_decode(bp["attn"], h, c, pos, cfg, ctx)
@@ -74,11 +106,29 @@ def _dense_decode_block(bp, c, x, pos, cfg, ctx):
     x = x + h
     h = L.rmsnorm(bp["ln2"], x, cfg.norm_eps)
     if "moe" in bp:
-        # never drop: capacity of at least one slot per row
-        h, _ = MOE.moe_mlp(bp["moe"], h, cfg, min_capacity=x.shape[0],
+        # one position per row: each row routes as if alone, so none drops
+        h, _ = MOE.moe_mlp(bp["moe"], h, cfg,
+                           min_capacity=x.shape[0] if per_row else 0,
                            with_aux=False)
         return x + h, c
     return x + L.mlp(bp["mlp"], h, cfg.activation), c
+
+
+def _audio_decode_block(bp, c, x, pos, cfg, ctx):
+    """``bp``: the layer's params under ``"p"`` and its cross K/V, which
+    pass through unchanged; ``c``: its self-attention cache."""
+    p = bp["p"]
+    h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
+    h, c = A.decode_attention(p["attn"], h, c, pos, cfg, ctx)
+    x = x + h
+    h = L.rmsnorm(p["ln_x"], x, cfg.norm_eps)
+    q = torch.einsum("...d,dhk->...hk", h, p["xattn"]["wq"]["w"])
+    bias = torch.zeros((1, 1, 1, bp["cross_k"].shape[1]),
+                       dtype=torch.float32, device=x.device)
+    o = A._direct_attn(q, bp["cross_k"], bp["cross_v"], bias)
+    x = x + torch.einsum("...hk,hkd->...d", o, p["xattn"]["wo"]["w"])
+    h = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
+    return x + L.mlp(p["mlp"], h, cfg.activation), c
 
 
 def _ssm_step(bp, c, h, cfg):
@@ -113,28 +163,45 @@ def _row_positions(pos: Position, batch: int, device) -> torch.Tensor:
 
 # --------------------------------------------------------------- the step
 
+def _audio_decode(params, cb, x, pos, cfg: ModelConfig, window: int):
+    """The decoder stack of one audio step: (x, new ``blocks`` cache)."""
+    ctx = A.decode_context(pos, cb["self"].k.shape[2], cfg, window)
+    x = x + L.sinusoid_at(pos, cfg.d_model)[:, None].to(x.dtype)
+    x, new_self = _scan_over(
+        {"p": params["blocks"], "cross_k": cb["cross_k"],
+         "cross_v": cb["cross_v"]}, cb["self"],
+        lambda bp, c, h: _audio_decode_block(bp, c, h, pos, cfg, ctx), x)
+    return x, {**cb, "self": new_self}
+
+
 def decode_step(params, cache, tokens: torch.Tensor, pos: Position,
                 cfg: ModelConfig, window_override: Optional[int] = None):
-    """tokens: (B, 1) int; pos: the current position, an int or one per
-    row (B,).  Returns (logits (B,1,V) float32, new cache)."""
+    """tokens: (B, 1) int; pos: the current position, an int for every row
+    or one per row (B,).  Returns (logits (B,1,V) float32, new cache)."""
     require_ported(cfg)
     window = cfg.window if window_override is None else window_override
+    per_row = isinstance(pos, torch.Tensor) and pos.dim() == 1
     pos = _row_positions(pos, tokens.shape[0], tokens.device)
     x = L.embed(params["embed"], tokens)
-    if cfg.family == "ssm":
-        def fn(bp, c, h):
-            return _ssm_step(bp, c, h, cfg)
-    else:
-        cache_len = TR.leaves(cache["blocks"])[0].shape[2]
-        ctx = (A.mla_decode_context if cfg.attn_type == "mla"
-               else A.decode_context)(pos, cache_len, cfg, window)
-
-        def fn(bp, c, h):
-            return _dense_decode_block(bp, c, h, pos, cfg, ctx)
     new_cache = dict(cache)
-    for name in ("dense_blocks", "blocks"):     # the dense prefix first
-        if name in params:
-            x, new_cache[name] = _scan_over(params[name], cache[name], fn, x)
+    if cfg.family == "audio":
+        x, new_cache["blocks"] = _audio_decode(params, cache["blocks"], x,
+                                               pos, cfg, window)
+    else:
+        if cfg.family == "ssm":
+            def fn(bp, c, h):
+                return _ssm_step(bp, c, h, cfg)
+        else:
+            cache_len = TR.leaves(cache["blocks"])[0].shape[2]
+            ctx = (A.mla_decode_context if cfg.attn_type == "mla"
+                   else A.decode_context)(pos, cache_len, cfg, window)
+
+            def fn(bp, c, h):
+                return _dense_decode_block(bp, c, h, pos, cfg, ctx, per_row)
+        for name in ("dense_blocks", "blocks"):     # the dense prefix first
+            if name in params:
+                x, new_cache[name] = _scan_over(params[name], cache[name],
+                                                fn, x)
     x = L.rmsnorm(params["ln_f"], x, cfg.norm_eps)
     logits = (L.unembed(params["embed"], x, cfg.logit_softcap)
               if cfg.tie_embeddings

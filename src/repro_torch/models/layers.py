@@ -269,10 +269,13 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
 
 
 def sinusoid_at(pos: torch.Tensor, d: int) -> torch.Tensor:
-    """Sinusoidal embedding for one position; (d,) fp32."""
+    """Sinusoidal embedding at one position, (d,) fp32, or at one position
+    per row, ``(B,)`` -> ``(B, d)``: the JAX package's arithmetic in f32
+    (``sinusoidal_positions`` computes the same table in float64)."""
     i = torch.arange(d // 2, dtype=torch.float32, device=pos.device)
-    ang = pos.float() / (10000.0 ** (2 * i / d))
-    return torch.stack([torch.sin(ang), torch.cos(ang)], dim=-1).reshape(d)
+    ang = pos.float()[..., None] / (10000.0 ** (2 * i / d))
+    return torch.stack([torch.sin(ang), torch.cos(ang)],
+                       dim=-1).reshape(pos.shape + (d,))
 
 
 def sinusoidal_positions(n: int, d: int) -> np.ndarray:

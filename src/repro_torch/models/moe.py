@@ -21,10 +21,11 @@ products are two batched matmuls over the same buffer: the JAX code
 concatenates the two weight stacks first, which here would copy 2/3 of the
 expert weights on every call.
 
-A caller that must never drop (decode, where the JAX package routes each
-sequence alone and a token's k distinct experts always fit) passes
-``min_capacity`` = the row count.  ``dispatch_groups`` > 1 (shard-local
-dispatch over a device mesh) belongs to the distributed slice.
+A caller that must never drop (decode at one position per row, where the
+JAX package routes each row alone and a token's k distinct experts always
+fit) passes ``min_capacity`` = the row count.  ``dispatch_groups`` > 1
+(shard-local dispatch over a device mesh) belongs to the distributed
+slice.
 
 Aux losses: load balance (Switch-style) and router z-loss, returned for
 the trainer to add.

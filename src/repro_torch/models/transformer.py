@@ -1,8 +1,12 @@
-"""The language model, dense, MoE and SSM families: the port of the JAX
-package's ``repro.models.transformer`` for ``[attn + mlp] x L`` stacks
-(h2o-danube; MLA attention: minicpm3), ``[attn + moe] x L`` stacks with an
-optional dense prefix (qwen3-moe, kimi-k2) and ``[mamba2] x L`` stacks
-(mamba2-780m).
+"""The language model: the port of the JAX package's
+``repro.models.transformer`` for ``[attn + mlp] x L`` stacks (h2o-danube;
+MLA attention: minicpm3; the vision family, phi-3-vision, which scatters
+precomputed patch embeddings into the token embeddings first),
+``[attn + moe] x L`` stacks with an optional dense prefix (qwen3-moe,
+kimi-k2), ``[mamba2] x L`` stacks (mamba2-780m) and the whisper-style
+encoder-decoder of the audio family (whisper-tiny: a non-causal encoder
+over precomputed frame embeddings, a decoder with sinusoidal positions and
+cross attention).
 
 The parameter tree is the JAX package's exactly: nested dicts whose layer
 stack is one leading dimension of each leaf (``blocks/mlp/up/w`` is
@@ -12,8 +16,8 @@ optimizer, the clip and the consensus act leaf by leaf on whole stacks.
 ``_scan_blocks`` is a Python loop over the layers; with ``remat`` each layer
 runs under ``torch.utils.checkpoint``.
 
-The hybrid, audio and vision families raise ``NotImplementedError``: they
-are queued in ROADMAP.md.
+The hybrid family raises ``NotImplementedError``: it is queued in
+ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -36,11 +40,11 @@ Params = Dict[str, Any]
 
 def require_ported(cfg: ModelConfig) -> None:
     """Raise for a family the port does not have."""
-    if cfg.family not in ("dense", "moe", "ssm"):
+    if cfg.family not in ("dense", "vlm", "moe", "ssm", "audio"):
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.arch_id}) is not ported yet: the "
-            "port has the dense (GQA and MLA), MoE and SSM families "
-            "(ROADMAP.md, queue 1, item 2)")
+            "port has the dense (GQA and MLA), vision, MoE, SSM and audio "
+            "families (ROADMAP.md, queue 1, item 1)")
 
 
 # ------------------------------------------------------------------- init
@@ -63,7 +67,7 @@ def _dense_block_init(gen, cfg: ModelConfig, lead: tuple, device,
 
 def init_params(gen: torch.Generator, cfg: ModelConfig, lead: tuple = (),
                 device=None) -> Params:
-    """Random parameters (dense, MoE and SSM families).  ``lead`` prefixes
+    """Random parameters of every ported family.  ``lead`` prefixes
     every leaf with stacked independent draws: ``(n_agents,)`` gives the
     agent-stacked tree.  ``gen`` must live on ``device``."""
     require_ported(cfg)
@@ -86,19 +90,27 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, lead: tuple = (),
                                                   device)
         p["blocks"] = _dense_block_init(gen, cfg, lead + (cfg.n_layers - nd,),
                                         device, use_moe=True)
-    else:
+    elif cfg.family == "audio":
+        p["enc_blocks"] = _dense_block_init(gen, cfg,
+                                            lead + (cfg.n_enc_layers,), device)
+        p["enc_ln_f"] = L.rmsnorm_init(cfg.d_model, dt, lead, device)
+        p["blocks"] = _dense_block_init(gen, cfg, stack, device)
+        p["blocks"]["ln_x"] = L.rmsnorm_init(cfg.d_model, dt, stack, device)
+        p["blocks"]["xattn"] = A.gqa_init(gen, cfg, stack, device)
+    else:                                  # dense, vlm
         p["blocks"] = _dense_block_init(gen, cfg, stack, device)
     return p
 
 
 # ---------------------------------------------------------------- forward
 
-def _dense_block(bp, x, positions, cfg: ModelConfig, window: int):
+def _dense_block(bp, x, positions, cfg: ModelConfig, window: int,
+                 causal: bool = True):
     h = L.rmsnorm(bp["ln1"], x, cfg.norm_eps)
     if cfg.attn_type == "mla":
         h = A.mla_attention(bp["attn"], h, positions, cfg)
     else:
-        h = A.self_attention(bp["attn"], h, positions, cfg, True, window)
+        h = A.self_attention(bp["attn"], h, positions, cfg, causal, window)
     x = x + h
     h = L.rmsnorm(bp["ln2"], x, cfg.norm_eps)
     if "moe" in bp:
@@ -148,6 +160,12 @@ def _scan_blocks(stacked, fn, x, remat):
     return x, aux
 
 
+def _sinusoids(n: int, x: torch.Tensor) -> torch.Tensor:
+    """The (n, d) sinusoidal position table in ``x``'s dtype and device."""
+    return torch.from_numpy(L.sinusoidal_positions(n, x.shape[-1])).to(
+        device=x.device, dtype=x.dtype)
+
+
 def forward_features(params: Params, batch: Dict[str, torch.Tensor],
                      cfg: ModelConfig, remat=False,
                      window_override: Optional[int] = None
@@ -159,6 +177,13 @@ def forward_features(params: Params, batch: Dict[str, torch.Tensor],
     positions = torch.arange(tokens.shape[-1], device=tokens.device)
     window = cfg.window if window_override is None else window_override
     x = L.embed(params["embed"], tokens)
+    if cfg.family == "audio":
+        # whisper's decoder takes absolute (sinusoidal) positions, no rope
+        x = x + _sinusoids(tokens.shape[-1], x)[None]
+    if cfg.family == "vlm" and "img_embeds" in batch:
+        rows = torch.arange(tokens.shape[0], device=x.device)[:, None]
+        x = x.index_put((rows, batch["img_pos"].long()),
+                        batch["img_embeds"].to(x.dtype))
 
     def block(bp, h):
         if cfg.family == "ssm":
@@ -166,10 +191,14 @@ def forward_features(params: Params, batch: Dict[str, torch.Tensor],
         return _dense_block(bp, h, positions, cfg, window)
 
     aux = 0.0
-    if "dense_blocks" in params:
-        x, aux = _scan_blocks(params["dense_blocks"], block, x, remat)
-    x, a = _scan_blocks(params["blocks"], block, x, remat)
-    aux = aux + a
+    if cfg.family == "audio":
+        enc = encode(params, batch["frames"], cfg, remat)
+        x, aux = _decoder_forward(params, x, enc, positions, cfg, remat)
+    else:
+        if "dense_blocks" in params:
+            x, aux = _scan_blocks(params["dense_blocks"], block, x, remat)
+        x, a = _scan_blocks(params["blocks"], block, x, remat)
+        aux = aux + a
     x = L.grad_dtype_barrier(x)          # keep backward in compute dtype
     x = L.rmsnorm(params["ln_f"], x, cfg.norm_eps)
     return x, aux
@@ -186,10 +215,57 @@ def forward(params: Params, batch: Dict[str, torch.Tensor],
             cfg: ModelConfig, remat=False,
             window_override: Optional[int] = None
             ) -> Tuple[torch.Tensor, Any]:
-    """Full-sequence forward.  batch: tokens (B,S).  Returns (logits
-    (B,S,V) fp32, aux_loss)."""
+    """Full-sequence forward.  batch: tokens (B,S) [+ img_embeds (B,n,d) and
+    img_pos (B,n) | frames (B,n_frames,d)].  Returns (logits (B,S,V) fp32,
+    aux_loss)."""
     x, aux = forward_features(params, batch, cfg, remat, window_override)
     logits = (L.unembed(params["embed"], x, cfg.logit_softcap)
               if cfg.tie_embeddings
               else L.lm_head(params["lm_head"], x, cfg.logit_softcap))
     return logits, aux
+
+
+# ------------------------------------------------------ audio (whisper)
+
+def encode(params: Params, frames: torch.Tensor, cfg: ModelConfig,
+           remat=False) -> torch.Tensor:
+    """frames: (B, n_frames, d_model), the stubbed conv frontend's output.
+    The encoder's self-attention is not causal."""
+    frames = frames.to(L.dtype_of(cfg.param_dtype))
+    x = frames + _sinusoids(frames.shape[-2], frames)[None]
+    positions = torch.arange(frames.shape[-2], device=frames.device)
+    x, _ = _scan_blocks(
+        params["enc_blocks"],
+        lambda bp, h: _dense_block(bp, h, positions, cfg, 0, causal=False),
+        x, remat)
+    return L.rmsnorm(params["enc_ln_f"], x, cfg.norm_eps)
+
+
+def _decoder_forward(params, x, enc, positions, cfg: ModelConfig, remat):
+    def dec_block(bp, h):
+        hh = L.rmsnorm(bp["ln1"], h, cfg.norm_eps)
+        h = h + A.self_attention(bp["attn"], hh, positions, cfg, causal=True)
+        hh = L.rmsnorm(bp["ln_x"], h, cfg.norm_eps)
+        h = h + _cross_attention(bp["xattn"], hh, enc)
+        hh = L.rmsnorm(bp["ln2"], h, cfg.norm_eps)
+        return h + L.mlp(bp["mlp"], hh, cfg.activation), 0.0
+
+    return _scan_blocks(params["blocks"], dec_block, x, remat)
+
+
+def cross_kv(p, enc):
+    """Cross attention's K and V of the encoder output: (..., n_frames, G,
+    hd) each."""
+    return (torch.einsum("...d,dgk->...gk", enc, p["wk"]["w"]),
+            torch.einsum("...d,dgk->...gk", enc, p["wv"]["w"]))
+
+
+def _cross_attention(p, x, enc):
+    """Direct attention of every decoder position over every frame (a zero
+    bias: nothing is masked)."""
+    q = torch.einsum("...d,dhk->...hk", x, p["wq"]["w"])
+    k, v = cross_kv(p, enc)
+    bias = torch.zeros((1, 1, x.shape[-2], enc.shape[-2]),
+                       dtype=torch.float32, device=x.device)
+    o = A._direct_attn(q, k, v, bias)
+    return torch.einsum("...hk,hkd->...d", o, p["wo"]["w"])

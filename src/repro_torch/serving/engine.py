@@ -85,14 +85,18 @@ class Engine:
         self.last_stats: Dict[str, float] = {}
         self._n_calls = 0
 
-    def generate(self, prompts: np.ndarray, n_new: int) -> np.ndarray:
-        """prompts: (B, P) int32 (unpadded).  Returns (B, n_new) greedy
+    def generate(self, prompts: np.ndarray, n_new: int,
+                 frames: Optional[np.ndarray] = None) -> np.ndarray:
+        """prompts: (B, P) int32 (unpadded); frames: an audio model's (B,
+        n_frames, d_model) frame embeddings.  Returns (B, n_new) greedy
         continuations.  Blocks until the whole batch is done."""
         B, P = prompts.shape
         sch = self.scheduler
         p0, d0 = sch.prefill_s, sch.decode_s
         t0 = time.perf_counter()
-        rids = [sch.submit(prompts[b], n_new) for b in range(B)]
+        rids = [sch.submit(prompts[b], n_new,
+                           frames=None if frames is None else frames[b])
+                for b in range(B)]
         pending = set(rids)
         while pending:
             sch.step()

@@ -50,7 +50,9 @@ class KVSlotPool:
 
     Construct with a prebuilt arena (tests) or via :meth:`create` (the
     scheduler path, which builds the arena with ``models.decode.init_cache``
-    so each family gets its native cache layout).
+    so each family gets its native cache layout: ring-buffer KV, MLA
+    latent, SSM state, and for audio the self KV beside every layer's cross
+    K/V, each leaf with the slot axis).
     """
 
     def __init__(self, arena: Tree, max_slots: int):
@@ -134,6 +136,9 @@ class KVSlotPool:
     def write_slots(self, slots: torch.Tensor, arena: Tree) -> None:
         """Copy the rows ``slots`` (an index tensor on the arena's device)
         of a whole-arena tree ``arena`` into the pool's arena; every other
-        slot keeps its bytes."""
+        slot keeps its bytes.  A leaf that is the pool's own tensor (the
+        audio cross K/V, which a decode step passes through) is skipped."""
         for l, n in zip(TR.leaves(self.arena), TR.leaves(arena)):
-            l.index_copy_(SLOT_AXIS, slots, n.index_select(SLOT_AXIS, slots))
+            if n is not l:
+                l.index_copy_(SLOT_AXIS, slots,
+                              n.index_select(SLOT_AXIS, slots))

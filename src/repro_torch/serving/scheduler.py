@@ -81,6 +81,7 @@ class Request:
     rid: int
     prompt: np.ndarray                    # (P,) int32
     max_new: int
+    frames: Optional[np.ndarray] = None   # audio: (n_frames, d_model)
     state: str = QUEUED
     slot: int = -1
     n_prefilled: int = 0
@@ -180,8 +181,11 @@ class Scheduler:
 
     # ----------------------------------------------------------- lifecycle
 
-    def submit(self, prompt: np.ndarray, max_new: int) -> int:
-        """Enqueue one request; returns its id.  ``prompt``: (P,) int32."""
+    def submit(self, prompt: np.ndarray, max_new: int,
+               frames: Optional[np.ndarray] = None) -> int:
+        """Enqueue one request; returns its id.  ``prompt``: (P,) int32;
+        ``frames``: an audio model's (n_frames, d_model) frame embeddings,
+        which it must have."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size == 0:
             raise ValueError("empty prompt")
@@ -191,8 +195,12 @@ class Scheduler:
             raise ValueError(
                 f"prompt ({prompt.size}) + max_new ({max_new}) exceeds "
                 f"max_len ({self.sched.max_len})")
+        if (frames is None) == (self.cfg.family == "audio"):
+            raise ValueError(
+                f"{self.cfg.arch_id}: an audio model's request takes frames, "
+                "any other model's none")
         req = Request(rid=self._next_rid, prompt=prompt, max_new=max_new,
-                      submit_step=self.step_idx,
+                      frames=frames, submit_step=self.step_idx,
                       submit_t=time.perf_counter())
         self._next_rid += 1
         self.queue.append(req)
@@ -238,8 +246,9 @@ class Scheduler:
 
         The ``phase_*_ms`` columns tile the measured window end to end (see
         STEP_RECORD_KEYS): admission covers everything from round start to
-        the first prefill launch (FIFO admission, slot zeroing, batch-list
-        builds), then prefill, then decode; each ends in a device sync.
+        the first prefill launch (FIFO admission, slot zeroing, the audio
+        encoder, batch-list builds), then prefill, then decode; each ends
+        in a device sync.
         The record-build + sink-flush tail of round *t* is carried into
         round *t+1* as its ``phase_telemetry_ms`` and folded into that
         round's ``step_time_ms``, keeping phases summing to the total.
@@ -262,6 +271,13 @@ class Scheduler:
                     req.admit_step = self.step_idx
                     self.active[req.rid] = req
                     admitted += 1
+                    if req.frames is not None:
+                        # the encoder writes the slot's cross K/V once
+                        self.pool.write_slot(req.slot, D.encode_for_decode(
+                            self.params, self.pool.read_slot(req.slot),
+                            torch.as_tensor(req.frames,
+                                            device=self.device)[None],
+                            self.cfg))
 
                 completed = 0
                 prefill_tokens = 0
