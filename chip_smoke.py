@@ -63,23 +63,31 @@ Phases, each printing one JSON line:
    ``llm_train.whisper-tiny``), as the MoE and MLA ones: phi-3-vision at
    full width with 6 of 32 layers and 576 patch embeddings a sequence, 10
    steps; whisper-tiny at full width and depth (4 encoder layers over
-   1,500 frames, 4 decoder layers), 20 steps;
+   1,500 frames, 4 decoder layers), 20 steps; then the hybrid sub-run
+   (``llm_train.recurrentgemma-9b``) the same way at full width with one
+   group of 3 layers (rec, rec, local attention), exp-sum K = 4 with bf16
+   accumulators, its kernel vs plain path at 3 layers; and the exp-sum
+   kernel at K = 4 against its plain version on its tied embedding of
+   both agents (``llm_train.kernels_k4``: 8.4 B elements of bf16 state);
 10. serve: the serving launcher (``repro_torch.launch.serve``) on
     h2o-danube-1.8b, mamba2-780m, qwen3-moe-30b-a3b, minicpm3-4b,
-    phi-3-vision-4.2b and whisper-tiny: its default trace on the card and
-    on the card machine's CPU (smoke configs, f32: equal tokens and step
-    columns); decode (``prefill_cache``, every position's logits; for
-    whisper from the cross K/V that ``encode_for_decode`` wrote) against
-    the full-sequence forward (over the same frames) at full width and
-    depth, in bf16 and in f32 (the MoE and MLA models' f32 runs at 4
-    layers), and with a ring buffer that wraps, where planted faults on
-    copies of the modules' source must fail the same check; traffic at
-    full width and depth (16 requests, or 8 for the MoE, MLA and vision
-    models; 8 slots; each whisper request with its own frames) with the
-    first requests run alone and ``Engine.generate`` bit-equal to the
-    packed run; tokens/s, TTFT, ms per step by phase and per prefill
-    token, the busy share, peak memory, and one decode step over the full
-    arena beside its weight-read bound;
+    phi-3-vision-4.2b, whisper-tiny and recurrentgemma-9b: its default
+    trace on the card and on the card machine's CPU (smoke configs, f32:
+    equal tokens and step columns); decode (``prefill_cache``, every
+    position's logits; for whisper from the cross K/V that
+    ``encode_for_decode`` wrote) against the full-sequence forward (over
+    the same frames) at full width and depth, in bf16 and in f32 (the MoE
+    and MLA models' f32 runs at 4 layers, recurrentgemma's at 5), and with
+    ring buffers that wrap (h2o-danube's window; recurrentgemma's local
+    attention), where planted faults on copies of the modules' source
+    must fail the same check; traffic at full width (16 requests, or 8 for
+    the MoE, MLA, vision and hybrid models; 8 slots; each whisper request
+    with its own frames; qwen3-moe, minicpm3, mamba2 and h2o-danube at
+    the cut depths of SERVE_TRAFFIC_LAYERS, the others at full depth) with
+    the first requests run alone and ``Engine.generate`` bit-equal to the
+    packed run; tokens/s, TTFT, ms per step by phase and per prefill token, the
+    busy share, peak memory, and one decode step over the full arena
+    beside its weight-read bound;
 11. timing: CUDA-event medians of each kernel, its plain version and (exact)
    one library call, beside the memory bound; the Exp 2 ms/step;
 12. profile: torch.profiler device time per launch of each kernel at each
@@ -92,14 +100,16 @@ Phases, each printing one JSON line:
 Then the ``{"kernels": [...]}`` summary line (launches per path: exp2,
 exp1_point, exp3, llm_train, llm_train_exact, llm_train_expsum_bf16acc,
 llm_train_mamba2, llm_train_qwen3_moe, llm_train_minicpm3,
-llm_train_minicpm3_exact, llm_train_phi3_vision, llm_train_whisper and
-serve_<arch> for the six served models (none on the serve paths), each
+llm_train_minicpm3_exact, llm_train_phi3_vision, llm_train_whisper,
+llm_train_recurrentgemma and serve_<arch> for the seven served models
+(none on the serve paths), each
 counted from 0 just before the path runs), the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Any failed
 check raises, so the script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import json
 import os
@@ -667,12 +677,12 @@ def llm_run(dev, **kw):
     return rows, launches, secs, peak, trace
 
 
-def llm_vs_loss(dev, mode, T_, seq=LLM_VS_PLAIN["seq"], **kw) -> list:
+def llm_vs_loss(dev, mode, T_, seq=LLM_VS_PLAIN["seq"],
+                n_layers=LLM_VS_PLAIN["n_layers"], **kw) -> list:
     """The losses of a short run (LLM_VS_PLAIN) for the kernel vs plain
     checks."""
-    rows, *_ = llm_run(dev, n_layers=LLM_VS_PLAIN["n_layers"],
-                       seq=seq, memory_mode=mode, T=T_,
-                       steps=LLM_VS_PLAIN["steps"], **kw)
+    rows, *_ = llm_run(dev, n_layers=n_layers, seq=seq, memory_mode=mode,
+                       T=T_, steps=LLM_VS_PLAIN["steps"], **kw)
     return [r["loss"] for r in rows]
 
 
@@ -1136,9 +1146,9 @@ def llm_train_archs(dev, runs: dict) -> tuple:
 
     train = functools.partial(llm_run, dev)
     tokens = LLM["agents"] * LLM["batch_per_agent"] * LLM["seq"]
-    K_ = TS.TrainConfig().K
     out, launches, kern = {}, {}, {}
     for arch, run in runs.items():
+        K_ = run.get("K", TS.TrainConfig().K)
         cfg = REG.get_config(arch).replace(n_layers=run["n_layers"])
         smoke = REG.get_smoke_config(arch)
         sizes = {n: (tuple(t.shape), t.element_size(), t.dtype)
@@ -1156,7 +1166,7 @@ def llm_train_archs(dev, runs: dict) -> tuple:
         steps = run["steps"]
         rows, ln, secs, peak, trace = train(
             arch=arch, n_layers=run["n_layers"], memory_mode="expsum",
-            T=LLM["T"], acc_dtype=run["acc_dtype"], steps=steps,
+            T=LLM["T"], K=K_, acc_dtype=run["acc_dtype"], steps=steps,
             profile=run["profile"])
         check(ln == {"frodo_exact_update": 0,
                      "frodo_expsum_update": n_leaves * steps},
@@ -1173,11 +1183,14 @@ def llm_train_archs(dev, runs: dict) -> tuple:
         prof = window_profile(trace, p1 - p0 + 1, step_ms[p0:p1 + 1],
                               "expsum_update_kernel", big, n_leaves)
 
-        # kernel vs plain path: 1 layer, seq 512 (or the run's vs_plain_seq)
+        # kernel vs plain path: 1 layer, seq 512 (or the run's
+        # vs_plain_layers, vs_plain_seq)
         tol = LLM_LOSS_TOL
-        vs_kw = dict(arch=arch, acc_dtype=run["acc_dtype"],
+        vs_kw = dict(arch=arch, acc_dtype=run["acc_dtype"], K=K_,
                      agents=LLM_NEW_VS_PLAIN_AGENTS,
-                     seq=run.get("vs_plain_seq", LLM_VS_PLAIN["seq"]))
+                     seq=run.get("vs_plain_seq", LLM_VS_PLAIN["seq"]),
+                     n_layers=run.get("vs_plain_layers",
+                                      LLM_VS_PLAIN["n_layers"]))
         vs = {uk: llm_vs_loss(dev, "expsum", LLM["T"], use_kernel=uk,
                               **vs_kw) for uk in (True, False)}
         ok, err = close_np(vs[True], vs[False], tol)
@@ -1197,7 +1210,7 @@ def llm_train_archs(dev, runs: dict) -> tuple:
         cc_rows = {}
         for where in (dev, "cpu"):
             r_, *_ = train(arch=arch, smoke=True, seq=128,
-                           param_dtype="float32",
+                           param_dtype="float32", K=K_,
                            steps=LLM_CARD_CPU["steps"], device=where,
                            init_fn=lambda seed: init)
             cc_rows["cpu" if where == "cpu" else "card"] = {
@@ -1220,6 +1233,8 @@ def llm_train_archs(dev, runs: dict) -> tuple:
                 "n_enc_layers": cfg.n_enc_layers,
                 "n_frames": cfg.n_frames if cfg.family == "audio" else 0,
                 "n_img_tokens": cfg.n_img_tokens,
+                "hybrid": cfg.hybrid and cfg.hybrid.__dict__,
+                "logit_softcap": cfg.logit_softcap,
                 "param_dtype": cfg.param_dtype},
             "n_layers": cfg.n_layers, "reduced": run["reduced"],
             "agents": LLM["agents"], "seq": LLM["seq"],
@@ -1237,6 +1252,7 @@ def llm_train_archs(dev, runs: dict) -> tuple:
             "expsum_bound_ms_at_big_leaf": big_bytes / HBM_BYTES_PER_S * 1e3,
             "kernel_vs_plain": {"agents": LLM_NEW_VS_PLAIN_AGENTS,
                                 "seq": vs_kw["seq"],
+                                "n_layers": vs_kw["n_layers"],
                                 "loss_kernel": vs[True],
                                 "loss_plain": vs[False], "max_abs_err": err,
                                 "planted_alpha_x1.1_max_abs_err": e_pl},
@@ -1333,11 +1349,109 @@ def llm_train_vlm_audio(dev) -> dict:
     return {"launches": launches, "kernels": kern}
 
 
+# ---------------------------------------------------------- the hybrid family
+#: the llm_train sub-run of recurrentgemma-9b (groups of two RG-LRU
+#: sub-layers and one local-attention sub-layer over a 2,048 window, each
+#: with a gated MLP; a 256,000-token tied embedding), as llm_train_archs
+#: runs it: full width, the train_4k shape, 2 agents x 2 sequences, exp-sum
+#: K = 4 with bf16 accumulators through the exp-sum kernel, 10 steps.  Its
+#: kernel vs plain path runs at 3 layers: one layer is divmod(1, 3) = no
+#: group (a zero-length stack, no attention, leaves that launch nothing).
+HYBRID_ARCH = "recurrentgemma-9b"
+LLM_HYBRID = {
+    HYBRID_ARCH: dict(
+        path="llm_train_recurrentgemma", n_layers=3, steps=10,
+        profile=(6, 7), acc_dtype="bfloat16", K=4, vs_plain_layers=3,
+        big_leaf="embed/table", reduced={
+            "n_layers": "38 -> 3: one group (rec, rec, local attention), "
+                        "656 M parameters an agent beside the 1,049 M of "
+                        "the tied embedding: 1.705 B an agent, 3.41 B for "
+                        "the two",
+            "global_batch": "256 -> 4 (2 agents x 2 sequences of "
+                            "train_4k's 4096)",
+            "acc_dtype": "float32 -> bfloat16",
+            "K": "8 -> 4: two agents' state at K = 8 is 3.41 B x (2 + 2 + "
+                 "8 x 2) B = 68 GB with bf16 accumulators (109 GB with "
+                 "f32) before activations; at K = 4 it is 41 GB"}),
+}
+
+
+def expsum_at_largest_leaf(dev, shape: tuple, K_: int) -> dict:
+    """The exp-sum kernel against its plain version on one leaf of
+    ``shape`` (bf16 gradient, ``K_`` bf16 accumulators, past 2^31 elements
+    of state), by ``kernel_bench.vs_plain``: delta within BF16_DELTA_TOL,
+    the new accumulators bit-equal, planted faults in the plain version on
+    a slab failing the same check.  The plain version runs in slices of
+    CHECK_CHUNK elements (it is elementwise, so each slice's bits are the
+    whole call's): its f32 temporaries of the whole 2.1 B-element leaf
+    would not fit beside the state.  Timed by CUDA events."""
+    import torch
+    from repro_torch.core import memory as fmem
+    from repro_torch.experiments import kernel_bench as KB
+    from repro_torch.kernels import frodo_update as KU
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    g = KB._randn(shape, torch.bfloat16, dev, gen)
+    acc = KB._randn((K_,) + shape, torch.bfloat16, dev, gen)
+    rates_np, coeffs_np = fmem.fit_expsum(LLM["T"], 0.15, K_)
+    rates = torch.tensor(rates_np, dtype=torch.float32)
+    coeffs = torch.tensor(coeffs_np, dtype=torch.float32)
+    n = g.numel()
+
+    def plain(st):
+        g_f, a_f = g.view(-1), st.view(K_, -1)
+        d = torch.empty_like(g_f)
+        for i in range(0, n, KB.CHECK_CHUNK):
+            j = min(n, i + KB.CHECK_CHUNK)
+            d[i:j], _ = ref.frodo_expsum_update_ref(
+                g_f[i:j], a_f[:, i:j], rates, coeffs, KB.ALPHA, KB.BETA)
+        return d.view(shape), st
+
+    def kern():
+        return KU.expsum_update(g, acc, rates, coeffs, KB.ALPHA, KB.BETA)
+
+    out = {"shape": [K_] + list(shape), "elements": acc.numel(),
+           "g_dtype": "bfloat16", "acc_dtype": "bfloat16", "K": K_,
+           **KB.vs_plain("expsum", g, acc, (rates, coeffs), plain, kern),
+           "ms": cuda_ms(kern, reps=10),
+           "plain_ms": cuda_ms(lambda: plain(acc), reps=2, warmup=1),
+           # g read, delta written; the accumulators read and written
+           "bound_ms": (2 * n * 2 + 2 * K_ * n * 2) / HBM_BYTES_PER_S * 1e3,
+           "bound_by": "bytes", "library_ms": None}
+    del g, acc
+    torch.cuda.empty_cache()
+    return out
+
+
+def llm_train_hybrid(dev) -> dict:
+    """The llm_train phase's sub-run of the hybrid family
+    (recurrentgemma-9b), as ``llm_train_archs`` runs it, then the exp-sum
+    kernel against its plain version at K = 4 on its largest leaf, the
+    tied embedding of both agents (2 x 256,000 x 4,096, the largest leaf
+    of any model in the repo; its state is 8.4 B elements).  Returns the
+    launches of its path and the kernel's numbers."""
+    from repro_torch.configs import registry as REG
+
+    launches, kern = llm_train_archs(dev, LLM_HYBRID)
+    run = LLM_HYBRID[HYBRID_ARCH]
+    shape = tuple(meta_leaves(REG.get_config(HYBRID_ARCH).replace(
+        n_layers=run["n_layers"]), LLM["agents"])[run["big_leaf"]].shape)
+    big = expsum_at_largest_leaf(dev, shape, run["K"])
+    emit("llm_train.kernels_k4", nvidia_smi=nvidia_smi(),
+         leaf=HYBRID_ARCH + "/" + run["big_leaf"], **big,
+         note="kernel vs plain version on the whole leaf; planted faults "
+              "in the plain version on a slab of the same inputs; ms by "
+              "CUDA events around one call (the plain version in slices)")
+    return {"launches": launches, "kernels": kern, "expsum_k4_at_embed": big}
+
+
 # ---------------------------------------------------------------- serving
 #: the serve phase drives repro_torch.launch.serve (the scheduler) and the
 #: decode path on every family the port serves
 SERVE_ARCHS = ("h2o-danube-1.8b", "mamba2-780m", "qwen3-moe-30b-a3b",
-               "minicpm3-4b", "phi-3-vision-4.2b", "whisper-tiny")
+               "minicpm3-4b", "phi-3-vision-4.2b", "whisper-tiny",
+               "recurrentgemma-9b")
 #: launch/serve's default trace (card against CPU, smoke configs in f32)
 SERVE_SMOKE = dict(n_requests=8, rate=0.7, prompt_len_range=(4, 12),
                    new_tokens_range=(3, 8), max_slots=4, prefill_chunk=8,
@@ -1358,7 +1472,30 @@ SERVE_TRAFFIC = {"h2o-danube-1.8b": (SERVE_FULL, 4),
                  "qwen3-moe-30b-a3b": (SERVE_SHORT, 2),
                  "minicpm3-4b": (SERVE_SHORT, 2),
                  "phi-3-vision-4.2b": (SERVE_SHORT, 2),
-                 "whisper-tiny": (SERVE_FULL, 4)}
+                 "whisper-tiny": (SERVE_FULL, 4),
+                 "recurrentgemma-9b": (SERVE_SHORT, 2)}
+#: the traffic runs served at a cut depth (the first layers of the loaded
+#: model's stack; its decode-vs-forward runs stay at full depth), so that
+#: the script stays within its limit of 1,200 s with a 10% margin on the
+#: slowest host seen.  Before recurrentgemma-9b was served, the whole
+#: script took 1,178.5 s on that host and 989.9 s on a faster one, and
+#: recurrentgemma-9b's trainer and serve sub-runs take 95 s more on an
+#: H100 (700 W).  The models are cut in this order until the projection
+#: at the slowest host's pace is at most 1,080 s.  Each saving is the
+#: model's full-depth traffic time (from its launcher's time, on the
+#: 989.9 s host) less its cut run: qwen3-moe ~73 s, minicpm3 ~64 s,
+#: mamba2 ~56 s.  With those three the whole script took 857.8 s on a
+#: host 1.12-1.53 times faster than the slowest in the phases that did
+#: not change: 1,104 s at its pace.  h2o-danube's cut saves ~35 s more
+#: (~45 s at that pace); with it the script took 850.7 s, ~1,007 s at
+#: that pace.
+SERVE_TRAFFIC_CUT = ("traffic only, decode vs forward at full depth: "
+                     "the script's 1,200 s limit")
+SERVE_TRAFFIC_LAYERS = {
+    "qwen3-moe-30b-a3b": (12, "48 -> 12, " + SERVE_TRAFFIC_CUT),
+    "minicpm3-4b": (16, "62 -> 16, " + SERVE_TRAFFIC_CUT),
+    "mamba2-780m": (16, "48 -> 16, " + SERVE_TRAFFIC_CUT),
+    "h2o-danube-1.8b": (8, "24 -> 8, " + SERVE_TRAFFIC_CUT)}
 #: scheduler steps under the profiler (busy share)
 SERVE_PROFILE = (12, 15)
 #: serve.step columns that do not read a clock
@@ -1374,7 +1511,8 @@ RING = dict(window=128, max_len=512, seq=300)
 #: planted faults) at cut depth, on an f32 model of this many layers drawn
 #: from the same seed: qwen3-moe's 30.5 B parameters in f32 (122 GB) do
 #: not fit the card
-DVF_F32_LAYERS = {"qwen3-moe-30b-a3b": 4, "minicpm3-4b": 4}
+DVF_F32_LAYERS = {"qwen3-moe-30b-a3b": 4, "minicpm3-4b": 4,
+                  "recurrentgemma-9b": 5}
 # The largest |logit| difference, decode against forward, per run, with the
 # served bf16 weights and with the same weights in float32 (TF32 off).  On
 # an H100 (NVIDIA H100 80GB HBM3, 700 W) the first runs read, bf16 / f32:
@@ -1397,18 +1535,26 @@ DVF_F32_LAYERS = {"qwen3-moe-30b-a3b": 4, "minicpm3-4b": 4}
 # (NVIDIA H100 80GB HBM3, 700 W); their limits are 2.4 times that in bf16
 # and 7.5-7.7 times in f32.  Planted, f32: whisper's decoder sinusoid one
 # position ahead 0.54, cross V read as K 0.0076, each layer reading the
-# next layer's cross K/V 5.1.
+# next layer's cross K/V 5.1.  recurrentgemma-9b (38 layers, its f32 runs
+# at 5: one group and the rec tail) read 0.098 / 3.6e-5, its local-
+# attention ring (window 128 over 300 tokens) 3.6e-5 in f32, on an H100
+# (NVIDIA H100 80GB HBM3, 700 W); the limits are 2.6 times that in bf16
+# and 8.3-8.4 times in f32.  Planted, f32: the RG-LRU conv window shifted
+# the wrong way 10.1, the state not decayed 8.6, the local window ignored
+# in decode 9.9.
 DVF_TOL = {"h2o-danube-1.8b": {"bfloat16": 0.15, "float32": 1e-4},
            "ring": {"bfloat16": 0.15, "float32": 1e-4},
            "mamba2-780m": {"bfloat16": 0.6, "float32": 5e-4},
            "qwen3-moe-30b-a3b": {"bfloat16": 0.25, "float32": 1e-4},
            "minicpm3-4b": {"bfloat16": 0.25, "float32": 1e-4},
            "phi-3-vision-4.2b": {"bfloat16": 0.15, "float32": 1e-4},
-           "whisper-tiny": {"bfloat16": 0.075, "float32": 4e-5}}
+           "whisper-tiny": {"bfloat16": 0.075, "float32": 4e-5},
+           "recurrentgemma-9b": {"bfloat16": 0.25, "float32": 3e-4},
+           "hybrid_ring": {"float32": 3e-4}}
 #: planted faults, each a one-line change to a copy of a module's source
-#: (decode's ``A``, attention, ``S``, ssm, or ``MOE``, moe; ``D``: decode
-#: itself) that the f32 decode-vs-forward check must catch: (module, run,
-#: old, new)
+#: (decode's ``A``, attention, ``S``, ssm, ``MOE``, moe, or ``R``, rglru;
+#: ``D``: decode itself) that the f32 decode-vs-forward check must catch:
+#: (module, run, old, new)
 DVF_PLANTED = {
     "rope_query_off_by_one": (
         "A", "h2o-danube-1.8b",
@@ -1438,6 +1584,14 @@ DVF_PLANTED = {
     "cross_kv_of_the_next_layer": (
         "D", "whisper-tiny", "TR.tree_map(lambda t: t[i], xa)",
         "TR.tree_map(lambda t: t[(i + 1) % cfg.n_layers], xa)"),
+    "rglru_conv_cache_shifted": ("R", "recurrentgemma-9b",
+                                 "new_conv = seq[:, 1:]",
+                                 "new_conv = seq[:, :-1]"),
+    "rglru_state_not_decayed": ("R", "recurrentgemma-9b",
+                                "h = torch.exp(log_a) * cache.h + b",
+                                "h = cache.h + b"),
+    "hybrid_decode_ignores_local_window": ("D", "hybrid_ring",
+                                           "cfg.hybrid.local_window", "0"),
 }
 
 
@@ -1487,6 +1641,7 @@ def serve_dvf(dev, label, cfg, params, toks, window_override=None,
     from repro_torch.models import attention as A
     from repro_torch.models import decode as D
     from repro_torch.models import moe as MOE
+    from repro_torch.models import rglru as R
     from repro_torch.models import ssm as S
     from repro_torch.models import transformer as T
 
@@ -1530,7 +1685,7 @@ def serve_dvf(dev, label, cfg, params, toks, window_override=None,
             try:
                 e = gap()
             finally:
-                D.A, D.S, D.MOE = A, S, MOE
+                D.A, D.S, D.MOE, D.R = A, S, MOE, R
         planted[name] = e
         check(e["max_abs_err"] > tol, f"planted fault {name} passes the "
               f"decode vs forward check ({label}, {dtype}): {e}")
@@ -1545,6 +1700,7 @@ def serve_traffic(dev, arch, cfg, params, gen, tmp) -> tuple:
     import numpy as np
     import torch
     from repro_torch import tree as TR
+    from repro_torch.configs import registry as REG
     from repro_torch.kernels import frodo_update as KU
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import frames_shape, run_traffic, traffic
@@ -1562,11 +1718,18 @@ def serve_traffic(dev, arch, cfg, params, gen, tmp) -> tuple:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     KU.reset_launches()
-    summary = run_traffic(arch=arch, smoke=False, device=dev,
-                          init_fn=lambda seed: params, metrics_out=path,
-                          quiet=True, profile_dir=prof_dir,
-                          profile_start=SERVE_PROFILE[0],
-                          profile_stop=SERVE_PROFILE[1], **trace_kw)
+    # run_traffic takes its config from the registry: give it ``cfg``
+    # (which may be a depth cut of the registry's)
+    full = REG.get_config
+    REG.get_config = lambda a: cfg if a == arch else full(a)
+    try:
+        summary = run_traffic(arch=arch, smoke=False, device=dev,
+                              init_fn=lambda seed: params, metrics_out=path,
+                              quiet=True, profile_dir=prof_dir,
+                              profile_start=SERVE_PROFILE[0],
+                              profile_stop=SERVE_PROFILE[1], **trace_kw)
+    finally:
+        REG.get_config = full
     torch.cuda.synchronize(dev)
     launches = dict(ops.LAUNCHES)
     check(sum(launches.values()) == 0,
@@ -1668,6 +1831,18 @@ def serve_traffic(dev, arch, cfg, params, gen, tmp) -> tuple:
     return out, launches
 
 
+def first_layers(cfg, params, n: int) -> tuple:
+    """``(cfg, params)`` cut to the first ``n`` layers of the model's one
+    layer stack (views of the loaded tensors: nothing is drawn again)."""
+    from repro_torch import tree as TR
+
+    check(set(params) <= {"embed", "ln_f", "lm_head", "blocks"},
+          f"{cfg.arch_id}: a depth cut needs one layer stack, not "
+          f"{sorted(params)}")
+    return cfg.replace(n_layers=n), {
+        **params, "blocks": TR.tree_map(lambda t: t[:n], params["blocks"])}
+
+
 def serve_phase(dev) -> dict:
     """Serving on the card: the launcher's default trace on the card against
     the card machine's CPU (smoke configs, f32); then per model at full
@@ -1738,8 +1913,16 @@ def serve_phase(dev) -> dict:
                 planted.update(p_)
                 del params32
                 torch.cuda.empty_cache()
+        cfg_t, params_t = cfg, params
+        if arch in SERVE_TRAFFIC_LAYERS:
+            cfg_t, params_t = first_layers(cfg, params,
+                                           SERVE_TRAFFIC_LAYERS[arch][0])
         traffic_out[arch], launches[f"serve_{arch}"] = serve_traffic(
-            dev, arch, cfg, params, gen, tmp)
+            dev, arch, cfg_t, params_t, gen, tmp)
+        if arch in SERVE_TRAFFIC_LAYERS:
+            traffic_out[arch]["reduced"] = {
+                "n_layers": SERVE_TRAFFIC_LAYERS[arch][1]}
+        del params_t
         emit("serve.traffic", arch=arch, nvidia_smi=nvidia_smi(),
              **traffic_out[arch])
         del params
@@ -1754,12 +1937,26 @@ def serve_phase(dev) -> dict:
             dvf[f"{arch}/float32"], p_ = serve_dvf(dev, arch, cfg32,
                                                    params32, toks)
             planted.update(p_)
+            if cfg.family == "hybrid":
+                # the local-attention ring wraps: a 128-token window over
+                # 300 tokens at max_len 512
+                ring = cfg32.replace(hybrid=dataclasses.replace(
+                    cfg32.hybrid, local_window=RING["window"]))
+                rtoks = torch.randint(1, cfg.vocab,
+                                      (DVF["batch"], RING["seq"]),
+                                      generator=gen, device=dev)
+                dvf["hybrid_ring/float32"], p_ = serve_dvf(
+                    dev, "hybrid_ring", ring, params32, rtoks,
+                    max_len=RING["max_len"])
+                dvf["hybrid_ring/float32"]["local_window"] = RING["window"]
+                planted.update(p_)
             del params32
             torch.cuda.empty_cache()
     emit("serve", nvidia_smi=nvidia_smi(), card_vs_cpu=card_cpu,
          card_vs_cpu_trace=SERVE_SMOKE, decode_vs_forward=dvf,
          planted_faults=planted, dvf_tol=DVF_TOL,
-         dvf_f32_layers=DVF_F32_LAYERS)
+         dvf_f32_layers=DVF_F32_LAYERS,
+         traffic_layers=SERVE_TRAFFIC_LAYERS)
     return {"launches": launches, "decode_vs_forward": dvf,
             "planted": planted, "traffic": traffic_out}
 
@@ -1939,6 +2136,8 @@ def main() -> int:
     llm["launches"].update(new["launches"])
     vla = llm_train_vlm_audio(dev)
     llm["launches"].update(vla["launches"])
+    hyb = llm_train_hybrid(dev)
+    llm["launches"].update(hyb["launches"])
     serve = serve_phase(dev)
     per_path = {name: {"exp2": launches_exp2[name],
                        "exp1_point": launches_exp1[name],
@@ -2132,6 +2331,8 @@ def main() -> int:
          "llm_bf16g_f32acc_at_mlp_up": llm["expsum"],
          "llm_moe_mla_largest_leaves": new["kernels"],
          "llm_vlm_audio_largest_leaves": vla["kernels"],
+         "llm_hybrid_largest_leaf": hyb["kernels"],
+         "llm_bf16g_k4_bf16acc_at_embed": hyb["expsum_k4_at_embed"],
          "bench": bench_rows(bench, "expsum")},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -29,7 +29,7 @@ def run_training(arch: str = "h2o-danube-1.8b", smoke: bool = True,
                  seed: int = 0, profile_dir: str = "",
                  profile_start: int = 0, profile_stop: int = 4,
                  spans_out: str = "", device=None, use_kernel: bool = True,
-                 n_layers: int = 0, acc_dtype: str = "float32",
+                 n_layers: int = 0, K: int = 8, acc_dtype: str = "float32",
                  param_dtype: str = "",
                  init_fn: Optional[Callable[[int], dict]] = None):
     """Run the training loop; returns the trainer (history attached, and
@@ -39,7 +39,8 @@ def run_training(arch: str = "h2o-danube-1.8b", smoke: bool = True,
     default, which raises without a card; ``"cpu"`` on purpose);
     ``use_kernel`` (the FrODO update through the hand-written kernels; the
     JAX launcher leaves ``TrainConfig.use_kernel`` at False); ``n_layers``
-    (cut the depth, 0 keeps the config's); ``acc_dtype`` (exp-sum
+    (cut the depth, 0 keeps the config's); ``K`` (the exp-sum
+    accumulator count, ``TrainConfig.K``); ``acc_dtype`` (exp-sum
     accumulators); ``param_dtype`` (param and compute dtype, "" keeps the
     config's); ``init_fn(seed)`` (initial stacked parameters as a numpy
     tree, for example the JAX package's, instead of the port's own draw).
@@ -57,7 +58,8 @@ def run_training(arch: str = "h2o-danube-1.8b", smoke: bool = True,
         cfg = cfg.replace(param_dtype=param_dtype, compute_dtype=param_dtype)
     collect = collect_metrics or bool(metrics_out)
     tc = TrainConfig(optimizer=optimizer, alpha=alpha, beta=beta,
-                     lam=lam, T=T, memory_mode=memory_mode, remat=not smoke,
+                     lam=lam, T=T, memory_mode=memory_mode, K=K,
+                     remat=not smoke,
                      topology=topology, acc_dtype=acc_dtype,
                      use_kernel=use_kernel,
                      consensus_interval=consensus_interval,
@@ -110,6 +112,8 @@ def main(argv=None):
     ap.add_argument("--T", type=int, default=40)
     ap.add_argument("--memory-mode", default="exact",
                     choices=("exact", "expsum"))
+    ap.add_argument("--K", type=int, default=8,
+                    help="exp-sum accumulator count")
     ap.add_argument("--acc-dtype", default="float32",
                     choices=("float32", "bfloat16"),
                     help="exp-sum accumulator dtype")
@@ -156,7 +160,7 @@ def main(argv=None):
                  profile_start=args.profile_start,
                  profile_stop=args.profile_stop, spans_out=args.spans_out,
                  device=args.device, use_kernel=args.use_kernel,
-                 n_layers=args.n_layers, acc_dtype=args.acc_dtype,
+                 n_layers=args.n_layers, K=args.K, acc_dtype=args.acc_dtype,
                  param_dtype=args.param_dtype)
 
 

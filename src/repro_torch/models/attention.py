@@ -199,7 +199,9 @@ class DecodeContext(NamedTuple):
 def decode_context(pos: torch.Tensor, cache_len: int, cfg: ModelConfig,
                    window: int = 0) -> DecodeContext:
     p = pos[:, None]                                          # (B, 1)
-    slot = pos % cache_len if window > 0 else pos
+    # without a window, a position past the cache writes its last slot, as
+    # the JAX package's dynamic_update_slice clamps its start
+    slot = pos % cache_len if window > 0 else pos.clamp(max=cache_len - 1)
     # absolute position held by each slot, per row
     idx = torch.arange(cache_len, device=pos.device)
     if window > 0:

@@ -1,5 +1,5 @@
-"""Single-token decode over a per-layer cache, for every ported family
-(dense with GQA or MLA, vision, MoE, SSM, audio): the port of the JAX
+"""Single-token decode over a per-layer cache, for every family (dense with
+GQA or MLA, vision, MoE, SSM, hybrid, audio): the port of the JAX
 package's ``repro.models.decode``.
 
 ``init_cache`` builds the cache tree (stacked along the layer dim to match
@@ -10,7 +10,10 @@ cache beside ``blocks``) and ``decode_step`` advances one token:
 
 Sliding-window archs (and a ``window_override`` for dense archs) get
 ring-buffer KV caches of window size, MLA a latent cache as long as the
-sequence, SSM O(1) recurrent state.  The audio family (whisper) has a
+sequence, SSM O(1) recurrent state.  The hybrid family (recurrentgemma)
+has per group two RG-LRU caches (the float32 state and the conv's last
+W-1 inputs) and a local-attention ring of ``min(local_window, max_len)``
+slots, and a tail of RG-LRU caches.  The audio family (whisper) has a
 decoder self-attention KV cache and each layer's cross-attention K/V of
 the encoder output, which ``encode_for_decode`` writes once per sequence
 and every step reads unchanged.  The vision family decodes text tokens
@@ -26,8 +29,7 @@ JAX package's expert capacity for B tokens, so rows past the capacity drop
 where the reference drops them.  With one position per row the reference
 routes each row alone, where a token's k distinct experts always fit, so
 the capacity is raised to at least B and no row drops.  Every function
-returns a new cache and leaves the one it was given as it was.  The hybrid
-family raises ``NotImplementedError`` (ROADMAP.md).
+returns a new cache and leaves the one it was given as it was.
 """
 from __future__ import annotations
 
@@ -40,9 +42,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
+from repro_torch.models import rglru as R
 from repro_torch.models import ssm as S
 from repro_torch.models import transformer as T
-from repro_torch.models.transformer import require_ported
 
 Position = Union[int, torch.Tensor]
 
@@ -51,10 +53,23 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                window_override: Optional[int] = None,
                device=None) -> Dict[str, Any]:
     """The zeroed cache of ``batch`` sequences, every leaf ``(n_layers,
-    batch, ...)``, in the compute dtype (the SSM state in float32)."""
-    require_ported(cfg)
+    batch, ...)``, in the compute dtype (the SSM and RG-LRU states in
+    float32)."""
     dt = L.dtype_of(cfg.compute_dtype)
     window = cfg.window if window_override is None else window_override
+    if cfg.family == "hybrid":
+        hy = cfg.hybrid
+        n_groups, tail = divmod(cfg.n_layers, len(hy.pattern))
+        lw = min(hy.local_window, max_len)
+        rec = (n_groups,)
+        cache = {"groups": {
+            "rec1": R.rglru_init_cache(cfg, batch, dt, rec, device),
+            "rec2": R.rglru_init_cache(cfg, batch, dt, rec, device),
+            "attn": A.init_cache(cfg, batch, max_len, lw, dt, rec, device)}}
+        if tail:
+            cache["tail_blocks"] = R.rglru_init_cache(cfg, batch, dt,
+                                                      (tail,), device)
+        return cache
     if cfg.family == "ssm":
         return {"blocks": S.mamba_init_cache(cfg, batch, dt,
                                              (cfg.n_layers,), device)}
@@ -137,11 +152,50 @@ def _ssm_step(bp, c, h, cfg):
     return h + out, c
 
 
+def _hybrid_sub_step(sp, c, x, kind, pos, cfg, ctx):
+    """One hybrid sub-layer: (x, its new cache)."""
+    h = L.rmsnorm(sp["ln1"], x, cfg.norm_eps)
+    if kind == "rec":
+        h, c = R.rglru_decode(sp["mix"], h, c, cfg)
+    else:
+        h, c = A.decode_attention(sp["mix"], h, c, pos, cfg, ctx)
+    x = x + h
+    h = L.rmsnorm(sp["ln2"], x, cfg.norm_eps)
+    return x + L.mlp(sp["mlp"], h, cfg.activation), c
+
+
+def _hybrid_decode(params, cache, x, pos, cfg: ModelConfig):
+    """The groups, then the rec tail, of one hybrid step: (x, new cache).
+    The local attention rings over the config's local window."""
+    ring = cache["groups"]["attn"].k.shape[2]
+    ctx = A.decode_context(pos, ring, cfg, cfg.hybrid.local_window)
+
+    def group(bp, c, h):
+        new = {}
+        for kind, name in zip(cfg.hybrid.pattern, T.HYBRID_SUBS):
+            h, new[name] = _hybrid_sub_step(bp[name], c[name], h, kind, pos,
+                                            cfg, ctx)
+        return h, new
+
+    new_cache = dict(cache)
+    x, new_cache["groups"] = _scan_over(params["groups"], cache["groups"],
+                                        group, x)
+    if "tail_blocks" in params:
+        x, new_cache["tail_blocks"] = _scan_over(
+            params["tail_blocks"], cache["tail_blocks"],
+            lambda bp, c, h: _hybrid_sub_step(bp, c, h, "rec", pos, cfg,
+                                              ctx), x)
+    return x, new_cache
+
+
 def _scan_over(stacked_p, stacked_c, fn, x):
     """``fn(layer_params, layer_cache, x) -> (x, layer_cache)`` over the
-    layer stack; the new layer caches are stacked into a new tree."""
+    layer stack; the new layer caches are stacked into a new tree (an
+    empty stack is returned as it was)."""
     flat_p, td_p = TR.flatten(stacked_p)
     flat_c, td_c = TR.flatten(stacked_c)
+    if flat_p[0].shape[0] == 0:
+        return x, stacked_c
     layers_p = [t.unbind(0) for t in flat_p]
     layers_c = [t.unbind(0) for t in flat_c]
     outs = []
@@ -178,7 +232,6 @@ def decode_step(params, cache, tokens: torch.Tensor, pos: Position,
                 cfg: ModelConfig, window_override: Optional[int] = None):
     """tokens: (B, 1) int; pos: the current position, an int for every row
     or one per row (B,).  Returns (logits (B,1,V) float32, new cache)."""
-    require_ported(cfg)
     window = cfg.window if window_override is None else window_override
     per_row = isinstance(pos, torch.Tensor) and pos.dim() == 1
     pos = _row_positions(pos, tokens.shape[0], tokens.device)
@@ -187,6 +240,8 @@ def decode_step(params, cache, tokens: torch.Tensor, pos: Position,
     if cfg.family == "audio":
         x, new_cache["blocks"] = _audio_decode(params, cache["blocks"], x,
                                                pos, cfg, window)
+    elif cfg.family == "hybrid":
+        x, new_cache = _hybrid_decode(params, cache, x, pos, cfg)
     else:
         if cfg.family == "ssm":
             def fn(bp, c, h):

@@ -3,10 +3,13 @@
 MLA attention: minicpm3; the vision family, phi-3-vision, which scatters
 precomputed patch embeddings into the token embeddings first),
 ``[attn + moe] x L`` stacks with an optional dense prefix (qwen3-moe,
-kimi-k2), ``[mamba2] x L`` stacks (mamba2-780m) and the whisper-style
-encoder-decoder of the audio family (whisper-tiny: a non-causal encoder
-over precomputed frame embeddings, a decoder with sinusoidal positions and
-cross attention).
+kimi-k2), ``[mamba2] x L`` stacks (mamba2-780m), the hybrid family's
+``(rec, rec, local-attn)`` groups, each sub-layer with its own gated MLP,
+plus a tail of ``n_layers % 3`` rec layers (recurrentgemma-9b: RG-LRU
+blocks and local attention over ``cfg.hybrid.local_window``), and the
+whisper-style encoder-decoder of the audio family (whisper-tiny: a
+non-causal encoder over precomputed frame embeddings, a decoder with
+sinusoidal positions and cross attention).
 
 The parameter tree is the JAX package's exactly: nested dicts whose layer
 stack is one leading dimension of each leaf (``blocks/mlp/up/w`` is
@@ -14,10 +17,8 @@ stack is one leading dimension of each leaf (``blocks/mlp/up/w`` is
 is plain functions over that tree, not one ``nn.Module`` per layer, so the
 optimizer, the clip and the consensus act leaf by leaf on whole stacks.
 ``_scan_blocks`` is a Python loop over the layers; with ``remat`` each layer
-runs under ``torch.utils.checkpoint``.
-
-The hybrid family raises ``NotImplementedError``: it is queued in
-ROADMAP.md.
+runs under ``torch.utils.checkpoint`` (a hybrid group, as in the JAX
+package, is one checkpointed unit).
 """
 from __future__ import annotations
 
@@ -33,18 +34,14 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
+from repro_torch.models import rglru as R
 from repro_torch.models import ssm as S
 
 Params = Dict[str, Any]
 
-
-def require_ported(cfg: ModelConfig) -> None:
-    """Raise for a family the port does not have."""
-    if cfg.family not in ("dense", "vlm", "moe", "ssm", "audio"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.arch_id}) is not ported yet: the "
-            "port has the dense (GQA and MLA), vision, MoE, SSM and audio "
-            "families (ROADMAP.md, queue 1, item 1)")
+#: the sub-layers of a hybrid group, in order; their kinds are
+#: ``cfg.hybrid.pattern``
+HYBRID_SUBS = ("rec1", "rec2", "attn")
 
 
 # ------------------------------------------------------------------- init
@@ -65,12 +62,24 @@ def _dense_block_init(gen, cfg: ModelConfig, lead: tuple, device,
     return p
 
 
+def _hybrid_sub_init(gen, cfg: ModelConfig, kind: str, lead: tuple,
+                     device) -> Params:
+    """One hybrid sub-layer: its mixer (an RG-LRU block or local attention)
+    and a gated MLP, each behind an RMSNorm."""
+    dt = L.dtype_of(cfg.param_dtype)
+    return {"ln1": L.rmsnorm_init(cfg.d_model, dt, lead, device),
+            "ln2": L.rmsnorm_init(cfg.d_model, dt, lead, device),
+            "mlp": L.mlp_init(gen, cfg.d_model, cfg.d_ff, True, dt, lead,
+                              device),
+            "mix": (R.rglru_init(gen, cfg, lead, device) if kind == "rec"
+                    else A.gqa_init(gen, cfg, lead, device))}
+
+
 def init_params(gen: torch.Generator, cfg: ModelConfig, lead: tuple = (),
                 device=None) -> Params:
-    """Random parameters of every ported family.  ``lead`` prefixes
+    """Random parameters of every family.  ``lead`` prefixes
     every leaf with stacked independent draws: ``(n_agents,)`` gives the
     agent-stacked tree.  ``gen`` must live on ``device``."""
-    require_ported(cfg)
     dt = L.dtype_of(cfg.param_dtype)
     lead = tuple(lead)
     p: Params = {"embed": L.embed_init(gen, cfg.vocab, cfg.d_model, dt, lead,
@@ -97,8 +106,19 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, lead: tuple = (),
         p["blocks"] = _dense_block_init(gen, cfg, stack, device)
         p["blocks"]["ln_x"] = L.rmsnorm_init(cfg.d_model, dt, stack, device)
         p["blocks"]["xattn"] = A.gqa_init(gen, cfg, stack, device)
-    else:                                  # dense, vlm
+    elif cfg.family == "hybrid":
+        n_groups, tail = divmod(cfg.n_layers, len(cfg.hybrid.pattern))
+        groups = lead + (n_groups,)
+        p["groups"] = {name: _hybrid_sub_init(gen, cfg, kind, groups, device)
+                       for name, kind in zip(HYBRID_SUBS,
+                                             ("rec", "rec", "attn"))}
+        if tail:
+            p["tail_blocks"] = _hybrid_sub_init(gen, cfg, "rec",
+                                                lead + (tail,), device)
+    elif cfg.family in ("dense", "vlm"):
         p["blocks"] = _dense_block_init(gen, cfg, stack, device)
+    else:
+        raise ValueError(f"family {cfg.family!r} ({cfg.arch_id})")
     return p
 
 
@@ -122,6 +142,24 @@ def _dense_block(bp, x, positions, cfg: ModelConfig, window: int,
 def _ssm_block(bp, x, cfg: ModelConfig):
     h = S.mamba_block(bp["mix"], L.rmsnorm(bp["ln1"], x, cfg.norm_eps), cfg)
     return x + h, 0.0
+
+
+def _hybrid_sub(sp, x, positions, cfg: ModelConfig, kind: str):
+    h = L.rmsnorm(sp["ln1"], x, cfg.norm_eps)
+    if kind == "rec":
+        h = R.rglru_block(sp["mix"], h, cfg)
+    else:
+        h = A.self_attention(sp["mix"], h, positions, cfg, True,
+                             cfg.hybrid.local_window)
+    x = x + h
+    h = L.rmsnorm(sp["ln2"], x, cfg.norm_eps)
+    return x + L.mlp(sp["mlp"], h, cfg.activation)
+
+
+def _hybrid_group(bp, x, positions, cfg: ModelConfig):
+    for kind, name in zip(cfg.hybrid.pattern, HYBRID_SUBS):
+        x = _hybrid_sub(bp[name], x, positions, cfg, kind)
+    return x, 0.0
 
 
 _MM = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
@@ -172,7 +210,6 @@ def forward_features(params: Params, batch: Dict[str, torch.Tensor],
                      ) -> Tuple[torch.Tensor, Any]:
     """Backbone only: returns (normalized features (B,S,d), aux_loss) —
     the head is applied by ``forward`` or by the chunked-CE loss."""
-    require_ported(cfg)
     tokens = batch["tokens"]
     positions = torch.arange(tokens.shape[-1], device=tokens.device)
     window = cfg.window if window_override is None else window_override
@@ -194,6 +231,15 @@ def forward_features(params: Params, batch: Dict[str, torch.Tensor],
     if cfg.family == "audio":
         enc = encode(params, batch["frames"], cfg, remat)
         x, aux = _decoder_forward(params, x, enc, positions, cfg, remat)
+    elif cfg.family == "hybrid":
+        x, _ = _scan_blocks(
+            params["groups"],
+            lambda bp, h: _hybrid_group(bp, h, positions, cfg), x, remat)
+        if "tail_blocks" in params:
+            x, _ = _scan_blocks(
+                params["tail_blocks"],
+                lambda bp, h: (_hybrid_sub(bp, h, positions, cfg, "rec"),
+                               0.0), x, remat)
     else:
         if "dense_blocks" in params:
             x, aux = _scan_blocks(params["dense_blocks"], block, x, remat)

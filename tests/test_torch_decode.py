@@ -106,13 +106,6 @@ def test_init_cache_tree_matches_jax(arch, window_override, max_len):
         assert cache.k.data_ptr() != cache.v.data_ptr()
 
 
-def test_other_families_do_not_decode():
-    """The hybrid family alone does not decode (the vision and audio
-    families do: tests/test_torch_vlm.py, test_torch_decode_audio.py)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        D.init_cache(REG.get_smoke_config("recurrentgemma-9b"), 1, 8)
-
-
 # ------------------------------------------------------- the step vs JAX
 
 @pytest.mark.parametrize("arch,dtype,window_override", [

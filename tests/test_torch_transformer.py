@@ -171,11 +171,3 @@ def test_moe_and_mla_models_match_jax(arch, remat, blockwise):
     assert len(jflat) == len(grads)
     for g, jgl in zip(grads, jflat):
         compare(g, jgl, "float32")
-
-
-def test_other_families_raise_not_implemented():
-    """The hybrid family alone is not ported (the vision and audio
-    families are: tests/test_torch_vlm.py, test_torch_audio.py)."""
-    cfg = REG.get_smoke_config("recurrentgemma-9b")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.init_params(torch.Generator(), cfg)
