@@ -24,12 +24,13 @@ Phases, each printing one JSON line:
 7. exp1: Exp 1 at the paper's full protocol (100 sets, 50 circle starts,
    5000 rounds, 3 variants, one batch) on the card, with iteration counts
    equal to the same sweep on the CPU; the paper's headline claims; the
-   150-step telemetry trace against ``benchmarks/baselines/exp1.json``; the
    representative point through ``core.loop`` with the exact kernel at
    T = 90 padded to 100 slots (one launch per round after the first),
-   against the inline trace;
+   against the inline trace (its telemetry trace is held against
+   ``benchmarks/baselines/exp1.json`` in the regress phase);
 8. exp3: Exp 3 at the regression scale (seed 0, 400 quadratic and 50
-   federated rounds): its quadratic series against
+   federated rounds) through ``repro_torch.experiments.regress.check``:
+   its quadratic series (``keep``) against
    ``benchmarks/baselines/exp3.json``, the exact-kernel launches of the
    FrODO arms, kernel vs plain path per round, the >= 2x robustness
    headline at 30% drop; ms per round; then the default scale (2000 / 150),
@@ -38,7 +39,10 @@ Phases, each printing one JSON line:
    on h2o-danube-1.8b at full width, depth cut to 8 layers, seq 4096, 2
    agents x 2 sequences, FrODO exp-sum memory (K = 8, f32 accumulators)
    through the exp-sum kernel on bf16 leaves: 20 steps, a falling loss,
-   240 launches, ms/step, tokens/s, peak memory, and a 3-step
+   240 launches, ms/step, tokens/s, peak memory, the step's model and
+   executed FLOPs (``utils.flops.train_flops``) and ``mfu`` (model FLOPs
+   over the step time and 989.4 TFLOP/s, on every llm_train line), and a
+   3-step
    torch.profiler window (the kernel's device time per step and at
    ``blocks/mlp/up/w``, the top kernels, the busy share); then the
    exact-memory sub-run (2 layers, T = 40, through the exact kernel),
@@ -88,11 +92,30 @@ Phases, each printing one JSON line:
     packed run; tokens/s, TTFT, ms per step by phase and per prefill token, the
     busy share, peak memory, and one decode step over the full arena
     beside its weight-read bound;
-11. timing: CUDA-event medians of each kernel, its plain version and (exact)
+11. dryrun: ``repro_torch.launch.dryrun --all`` over the ten architectures
+    x four shapes on the meta path (each record ``ok`` or skipped with
+    ``registry.shape_supported``'s reason), then ``--probe`` on
+    h2o-danube-1.8b x train_4k at global batch 4 (exp-sum K = 8, f32
+    accumulators, through the exp-sum kernel): steps at 2 and 3 layers,
+    their peak memory and device ms extrapolated to 24 layers and to the
+    llm_train run's 8, beside that run's readings;
+12. roofline: ``repro_torch.experiments.roofline`` over those records,
+    headed by the card's name and power limit: its row count and the
+    probed pair's terms and ``mfu_bound``;
+13. regress: ``repro_torch.experiments.regress --check --exp exp1``
+    against the committed baseline; ``--record`` then ``--check`` into a
+    temp dir for serve (the port's serve bench), train and exp2;
+14. ablations: the four arms of ``repro_torch.experiments.ablations``
+    (lambda, K, interval H, accumulator dtype) through both kernels at
+    ABLATION_ROUNDS rounds; each run's error trajectory against the plain
+    path's on the card, where a planted fault must fail;
+15. harness: ``repro_torch.experiments.run consensus roofline
+    ablations`` (consensus timed by CUDA events);
+16. timing: CUDA-event medians of each kernel, its plain version and (exact)
    one library call, beside the memory bound; the Exp 2 ms/step;
-12. profile: torch.profiler device time per launch of each kernel at each
+17. profile: torch.profiler device time per launch of each kernel at each
     Exp 2 leaf, and an Exp 2 step's device time, busy share and top kernels;
-13. kernel_bench: the rows of ``repro_torch.experiments.kernel_bench``,
+18. kernel_bench: the rows of ``repro_torch.experiments.kernel_bench``,
     each kernel held against its plain version on the row's inputs (at
     qwen3-moe's ``experts/gate`` the bf16 exp-sum state is past 2^31
     elements), with planted faults in the plain version that must fail.
@@ -101,8 +124,8 @@ Then the ``{"kernels": [...]}`` summary line (launches per path: exp2,
 exp1_point, exp3, llm_train, llm_train_exact, llm_train_expsum_bf16acc,
 llm_train_mamba2, llm_train_qwen3_moe, llm_train_minicpm3,
 llm_train_minicpm3_exact, llm_train_phi3_vision, llm_train_whisper,
-llm_train_recurrentgemma and serve_<arch> for the seven served models
-(none on the serve paths), each
+llm_train_recurrentgemma, serve_<arch> for the seven served models
+(none on the serve paths), dryrun_probe and ablations, each
 counted from 0 just before the path runs), the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Any failed
 check raises, so the script exits non-zero and prints no result.
@@ -116,6 +139,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -222,20 +246,14 @@ def close_np(a, b, tol) -> tuple:
             float(err.max()) if err.size else 0.0)
 
 
-def baseline_check(name: str, rows, keep) -> dict:
-    """Hold the series of ``rows`` whose label passes ``keep`` against the
-    committed golden baseline ``benchmarks/baselines/<name>.json`` with the
-    regression gate's tolerances (timing excluded).  Raises on drift."""
+def regress_passed(name: str, diffs) -> dict:
+    """Raise unless every diff of a ``repro_torch.experiments.regress``
+    check against ``benchmarks/baselines/<name>.json`` passed; a summary
+    of the check otherwise."""
     from repro_torch.obs import regress as R
-    base = R.load_baseline(os.path.join(ROOT, "benchmarks", "baselines",
-                                        f"{name}.json"))
-    base["series"] = {k: v for k, v in base["series"].items() if keep(k)}
-    rows = [r for r in rows if keep(R.group_label(r))]
-    diffs = R.compare_to_baseline(base, rows, R.Tolerance(**REGRESS_TOL),
-                                  include_timing=False)
     check(bool(diffs) and all(d.passed for d in diffs),
           f"{name} against its baseline:\n{R.format_report(diffs)}")
-    return {"series": len(base["series"]), "checks": len(diffs),
+    return {"series": len({d.group for d in diffs}), "checks": len(diffs),
             "worst_violation_frac": max(d.violation_frac for d in diffs)}
 
 
@@ -313,11 +331,10 @@ def faults_phase(dev) -> None:
 
 def exp1_phase(dev) -> dict:
     """Exp 1 at the paper's full protocol on the card, against the same
-    sweep on the CPU; its headline claims; its telemetry trace against the
-    committed baseline; the representative point through core.loop with
-    the exact kernel at T = 90 padded to 100 slots."""
-    import tempfile
-
+    sweep on the CPU; its headline claims; the representative point
+    through core.loop with the exact kernel at T = 90 padded to 100 slots.
+    Its telemetry trace is held against the committed baseline in the
+    regress phase."""
     import numpy as np
     import torch
     from repro_torch.core import graph as G
@@ -326,7 +343,6 @@ def exp1_phase(dev) -> dict:
     from repro_torch.experiments import exp1_quadratic as E1
     from repro_torch.kernels import frodo_update as KU
     from repro_torch.kernels import ops
-    from repro_torch.obs.metrics import read_jsonl
 
     t0 = time.perf_counter()
     card = E1.sweep(n_sets=100, n_circle=50, seed=0, device=dev)
@@ -353,12 +369,6 @@ def exp1_phase(dev) -> dict:
           f"steep/flat ratios out of order: {r}")
     check(ks < 1e-3, f"one-sided KS p = {ks} >= 1e-3")
 
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "exp1.jsonl")
-        E1.write_metrics_jsonl(path, steps=150, device=dev)
-        rows = read_jsonl(path)
-    base = baseline_check("exp1", rows, lambda label: True)
-
     K = EXP1_POINT_ROUNDS
     point = (0.8, 0.35, 0.15, 90.0)
     KU.reset_launches()
@@ -381,7 +391,8 @@ def exp1_phase(dev) -> dict:
          no_memory_over_fractional=nm / frac, steep_flat_ratio=r,
          ks_one_sided_p={k: v["p"] for k, v in s["ks_tests"].items()
                          if k.startswith("one_sided")},
-         telemetry_vs_baseline=base,
+         telemetry_vs_baseline="the regress phase (repro_torch.experiments."
+         "regress --check --exp exp1)",
          point={"alpha": 0.8, "beta": 0.35, "lam": 0.15, "T": 90,
                 "pad_T": 100, "rounds": K, "launches": launches,
                 "max_abs_err_vs_inline": err, "tol": POINT_TOL,
@@ -394,12 +405,11 @@ def exp3_phase(dev) -> dict:
     against the committed baseline, exact-kernel launches, kernel vs plain
     path, the robustness headline; then the default scale, timed, in both
     drop modes."""
-    import tempfile
-
     from repro_torch.experiments import exp3_faults as E3
+    from repro_torch.experiments import regress as RG
     from repro_torch.kernels import frodo_update as KU
     from repro_torch.kernels import ops
-    from repro_torch.obs.metrics import read_jsonl
+    from repro_torch.obs import regress as R
 
     n_leaves = 4                                   # w0, b0, w1, b1
     quad, fed = 400, 50                            # benchmarks/regress.py
@@ -409,19 +419,20 @@ def exp3_phase(dev) -> dict:
         return {"frodo_exact_update": n_drops * ((q - 1) + n_leaves * f),
                 "frodo_expsum_update": 0}
 
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "exp3.jsonl")
-        KU.reset_launches()
-        t0 = time.perf_counter()
-        summary = E3.run_experiment(seed=0, quad_steps=quad, fed_steps=fed,
-                                    metrics_out=path, metrics_steps=60,
-                                    device=dev)
-        reg_s = time.perf_counter() - t0
-        launches = dict(ops.LAUNCHES)
-        rows = read_jsonl(path)
+    # the baseline's meta replays seed 0, 400 quadratic rounds (and so 50
+    # federated rounds and a 60-step window): regress.run_exp3's scale
+    KU.reset_launches()
+    t0 = time.perf_counter()
+    diffs = RG.check("exp3", RG.DEFAULT_BASELINE_DIR,
+                     R.Tolerance(**REGRESS_TOL), None, None,
+                     include_timing=False,
+                     keep=lambda label: "quadratic-" in label, device=dev)
+    reg_s = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    summary = diffs.summary
     check(launches == expected(quad, fed),
           f"exact launches on Exp 3: {launches} != {expected(quad, fed)}")
-    base = baseline_check("exp3", rows, lambda label: "quadratic-" in label)
+    base = regress_passed("exp3", diffs)
     row = summary["quadratic"]["drop30"]
     check(row["frodo"]["iters_to_tol"] < quad,
           f"FrODO at 30% drop did not reach {E3.QUAD_TOL}: {row}")
@@ -485,7 +496,8 @@ def exp3_phase(dev) -> dict:
                 if isinstance(r, dict)}}
     emit("exp3", seed=0, quad_steps=quad, fed_steps=fed, metrics_steps=60,
          seconds=reg_s, launches=launches,
-         quadratic_vs_baseline=base,
+         quadratic_vs_baseline=dict(base, through="repro_torch.experiments."
+                                    "regress.check(keep=quadratic-*)"),
          federated_vs_baseline="not checked: the baseline's federated "
          "initial weights come from JAX's non-partitionable threefry draw, "
          "and there is no JAX on the card",
@@ -569,7 +581,7 @@ LLM_PLANTED = {"alpha_x1.1": dict(alpha=0.022), "beta_x1.1": dict(beta=0.0088)}
 # Card vs CPU at f32 (TF32 off): the same arithmetic in other sum orders
 # (~1e-6 relative per step), carried over 12 steps of training.
 CARD_CPU_TOL = dict(rtol=1e-4, atol=1e-6)
-BF16_FLOPS_PER_S = 989e12                   # H100 SXM, dense bf16
+BF16_FLOPS_PER_S = 989.4e12                 # H100 SXM5, dense bf16
 #: the llm_train sub-run on mamba2-780m at full width: the train_4k shape,
 #: 2 agents x 2 sequences, exp-sum K = 8 with f32 accumulators through the
 #: exp-sum kernel, on a tree of bf16 leaves and three f32 ones (A_log, D,
@@ -644,8 +656,6 @@ def llm_run(dev, **kw):
     defaults otherwise); returns its sink rows, its launches (counted from 0
     just before), its seconds, its peak device memory (0 for a run on the
     CPU) and its profile trace path (or None)."""
-    import tempfile
-
     import torch
     from repro_torch.kernels import frodo_update as KU
     from repro_torch.kernels import ops
@@ -675,6 +685,21 @@ def llm_run(dev, **kw):
     rows = read_jsonl(args["metrics_out"])
     trace = os.path.join(tmp, "trace.json") if prof is not None else None
     return rows, launches, secs, peak, trace
+
+
+def flop_fields(cfg, ms: float) -> dict:
+    """One training step's FLOPs by ``utils.flops.train_flops`` on the
+    run's own config (its cut depth) and shape (seq 4096, global batch 4:
+    2 agents x 2 sequences), and ``mfu``: the model FLOPs (6 N_active D)
+    over the median step time and the card's dense bf16 peak."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.utils import flops as FL
+    shape = InputShape("train_4k_cut", LLM["seq"],
+                       LLM["agents"] * LLM["batch_per_agent"], "train")
+    f = FL.train_flops(cfg, shape)
+    return {"model_flops_per_step": f["model_flops"],
+            "exec_flops_per_step": f["exec_flops"],
+            "mfu": f["model_flops"] / (ms / 1e3 * BF16_FLOPS_PER_S)}
 
 
 def llm_vs_loss(dev, mode, T_, seq=LLM_VS_PLAIN["seq"],
@@ -736,13 +761,7 @@ def llm_train_phase(dev) -> dict:
     step_ms = [r["step_time_ms"] for r in rows]
     ms = statistics.median(step_ms[LLM["timed_from"]:])
     per_agent = n // LLM["agents"]
-    matmul_params = per_agent - int(np.prod(shapes["embed/table"][1:]))
-    S, B, H, hd = LLM["seq"], LLM["batch_per_agent"], cfg.n_heads, cfg.hd()
-    nblk = S // cfg.attn_chunk
-    computed = (nblk * (nblk + 1) // 2) / nblk ** 2    # causal block skip
-    attn = (3 * 4 * B * S * S * H * hd * computed * cfg.n_layers
-            * LLM["agents"])
-    flops = 6 * matmul_params * tokens + attn
+    S, B = LLM["seq"], LLM["batch_per_agent"]
     p0, p1 = LLM["profile"]
     prof_main = window_profile(trace, p1 - p0 + 1, step_ms[p0:p1 + 1],
                                "expsum_update_kernel", up, n_leaves)
@@ -763,9 +782,7 @@ def llm_train_phase(dev) -> dict:
         "ms_per_step": ms, "ms_per_step_steps": [LLM["timed_from"],
                                                  steps - 1],
         "tokens_per_s": tokens / (ms / 1e3),
-        "model_flops_per_step": flops,
-        "model_flops_share_of_bf16_peak": flops / (ms / 1e3)
-        / BF16_FLOPS_PER_S,
+        **flop_fields(cfg, ms),
         "peak_memory_bytes": peak, "profile_steps": [p0, p1],
         "profile": prof_main,
         "expsum_bound_ms_per_step": bound(68 * n),
@@ -791,11 +808,12 @@ def llm_train_phase(dev) -> dict:
     q0, q1 = ex["profile"]
     emb = list(shapes_x).index("embed/table")
     n_emb = int(np.prod(shapes_x["embed/table"]))
+    ms_x = statistics.median(step_ms[1:q0])
     exact = {
         "n_layers": ex["n_layers"], "T": ex["T"], "steps": ex["steps"],
         "n_total": n_x, "seconds": secs, "loss": loss_x,
-        "launches": launches_x,
-        "ms_per_step": statistics.median(step_ms[1:q0]),
+        "launches": launches_x, **flop_fields(cfg_x, ms_x),
+        "ms_per_step": ms_x,
         "ms_per_step_steps": [1, q0 - 1], "peak_memory_bytes": peak_x,
         "profile_steps": [q0, q1],
         "profile": window_profile(trace, q1 - q0 + 1, step_ms[q0:q1 + 1],
@@ -854,10 +872,12 @@ def llm_train_phase(dev) -> dict:
     check(bool(np.isfinite(loss_b).all()), f"bf16-acc loss: {loss_b}")
     step_ms = [r["step_time_ms"] for r in rows]
     b0, b1 = bf["profile"]
+    ms_b = statistics.median(step_ms[1:b0])
     bf16acc = {
         "steps": bf["steps"], "loss": loss_b, "launches": launches_b,
         "seconds": secs, "peak_memory_bytes": peak_b,
-        "ms_per_step": statistics.median(step_ms[1:b0]),
+        **flop_fields(cfg.replace(n_layers=bf["n_layers"]), ms_b),
+        "ms_per_step": ms_b,
         "ms_per_step_steps": [1, b0 - 1],
         "profile_steps": [b0, b1],
         "profile": window_profile(trace, b1 - b0 + 1, step_ms[b0:b1 + 1],
@@ -865,7 +885,9 @@ def llm_train_phase(dev) -> dict:
         "expsum_bound_ms_per_step": bound(36 * n),
         "expsum_bound_ms_at_up": bound(36 * int(np.prod(shapes[
             "blocks/mlp/up/w"])))}
-    emit("llm_train.sub_runs", exact=exact, kernel_vs_plain=vs,
+    emit("llm_train.sub_runs",
+         mfu={"exact": exact["mfu"], "expsum_bf16_acc": bf16acc["mfu"]},
+         exact=exact, kernel_vs_plain=vs,
          kernel_vs_plain_tol=LLM_LOSS_TOL, card_vs_cpu_max_abs_err=cc,
          card_vs_cpu_tol=CARD_CPU_TOL, card_vs_cpu=card_cpu,
          card_vs_cpu_steps=LLM_CARD_CPU["steps"], expsum_bf16_acc=bf16acc)
@@ -968,6 +990,7 @@ def llm_train_phase(dev) -> dict:
     del g, hist
     torch.cuda.empty_cache()
     emit("llm_train.kernels", nvidia_smi=nvidia_smi(),
+         mfu=main["mfu"], mfu_of="the llm_train run these leaves belong to",
          expsum_bf16g_f32acc_at_mlp_up=es_big, exact_bf16_at_embed=ex_big,
          tol={"delta": BF16_DELTA_TOL, "new_acc": "bit-equal",
               "pushed_history": "bit-equal"},
@@ -977,7 +1000,9 @@ def llm_train_phase(dev) -> dict:
               "CUDA events around one wrapper "
               "call; the library call is torch.addmv (exact; no one "
               "PyTorch call does the exp-sum update)")
-    return {"launches": {"llm_train": launches,
+    return {"main": {k: main[k] for k in ("ms_per_step", "peak_memory_bytes",
+                                          "mfu")},
+            "launches": {"llm_train": launches,
                          "llm_train_exact": launches_x,
                          "llm_train_expsum_bf16acc": launches_b},
             "expsum": dict(
@@ -1072,6 +1097,7 @@ def llm_train_mamba2(dev) -> dict:
         steps=mb["steps"], seconds=secs, loss=loss_m, grad_norm=gnorm_m,
         launches=launches_m, ms_per_step=statistics.median(step_ms[1:]),
         ms_per_step_steps=[1, mb["steps"] - 1],
+        **flop_fields(cfg_m, statistics.median(step_ms[1:])),
         tokens_per_s=tokens / (statistics.median(step_ms[1:]) / 1e3),
         peak_memory_bytes=peak_m, kernel_vs_plain=vs_m,
         kernel_vs_plain_tol=LLM_LOSS_TOL, card_vs_cpu_max_abs_err=cc_m,
@@ -1245,6 +1271,7 @@ def llm_train_archs(dev, runs: dict) -> tuple:
             "seconds": secs, "loss": loss, "grad_norm": gnorm,
             "launches": ln, "launches_per_step": n_leaves,
             "ms_per_step": ms, "ms_per_step_steps": [1, p0 - 1],
+            **flop_fields(cfg, ms),
             "tokens_per_s": tokens / (ms / 1e3), "peak_memory_bytes": peak,
             "profile_steps": [p0, p1], "profile": prof,
             "expsum_bound_ms_per_step": state_bytes / HBM_BYTES_PER_S * 1e3,
@@ -1259,6 +1286,7 @@ def llm_train_archs(dev, runs: dict) -> tuple:
             "kernel_vs_plain_tol": tol, "card_vs_cpu_max_abs_err": cc,
             "card_vs_cpu_tol": CARD_CPU_TOL}
         kern[arch] = {"leaf": run["big_leaf"], "shape": list(big_shape),
+                      "mfu": out[arch]["mfu"],
                       "acc_dtype": run["acc_dtype"],
                       "device_ms_at_leaf": prof["kernel_ms_at_leaf"],
                       "bound_ms_at_leaf": out[arch][
@@ -1297,12 +1325,13 @@ def llm_train_moe_mla(dev) -> dict:
     check(bool(np.isfinite(loss).all()), f"{MLA_ARCH} exact loss: {loss}")
     check(peak < LLM_PEAK_LIMIT, f"{MLA_ARCH} exact: peak {peak}")
     launches["llm_train_minicpm3_exact"] = ln
+    ms = statistics.median([r["step_time_ms"] for r in rows][1:])
     emit("llm_train." + MLA_ARCH + ".exact", nvidia_smi=nvidia_smi(),
          n_layers=ex["n_layers"], T=ex["T"], reduced=ex["reduced"],
          steps=ex["steps"], loss=loss, launches=ln,
-         launches_per_step=n_leaves, seconds=secs,
-         ms_per_step=statistics.median(
-             [r["step_time_ms"] for r in rows][1:]),
+         launches_per_step=n_leaves, seconds=secs, ms_per_step=ms,
+         **flop_fields(REG.get_config(MLA_ARCH).replace(
+             n_layers=ex["n_layers"]), ms),
          peak_memory_bytes=peak)
     return {"launches": launches, "kernels": kern}
 
@@ -1439,6 +1468,8 @@ def llm_train_hybrid(dev) -> dict:
         n_layers=run["n_layers"]), LLM["agents"])[run["big_leaf"]].shape)
     big = expsum_at_largest_leaf(dev, shape, run["K"])
     emit("llm_train.kernels_k4", nvidia_smi=nvidia_smi(),
+         mfu=kern[HYBRID_ARCH]["mfu"],
+         mfu_of="the llm_train run this leaf belongs to",
          leaf=HYBRID_ARCH + "/" + run["big_leaf"], **big,
          note="kernel vs plain version on the whole leaf; planted faults "
               "in the plain version on a slab of the same inputs; ms by "
@@ -1852,8 +1883,6 @@ def serve_phase(dev) -> dict:
     scheduler, solo runs and Engine.generate bit-equal to the packed run,
     timed and profiled.  Returns the FrODO kernels' launches on the serve
     path of each model (there are none)."""
-    import tempfile
-
     import torch
     from repro_torch import tree as TR
     from repro_torch.configs import registry as REG
@@ -1959,6 +1988,286 @@ def serve_phase(dev) -> dict:
          traffic_layers=SERVE_TRAFFIC_LAYERS)
     return {"launches": launches, "decode_vs_forward": dvf,
             "planted": planted, "traffic": traffic_out}
+
+
+# ---------------------- the dry-run, the roofline and the experiments' CLIs
+#: the dry-run's probed pair: the llm_train run's model and shape (probed
+#: at global batch 4 with exp-sum K = 8 and f32 accumulators, the
+#: dry-run's default TrainConfig), and the depth of the llm_train run its
+#: extrapolation is printed beside
+DRYRUN_PROBE = ("h2o-danube-1.8b", "train_4k")
+#: the ablation arms' rounds on the card (the JAX script's K_MAX is 4000),
+#: and the dtype arm's steps (its default is 800): the card script's time
+ABLATION_ROUNDS = 600
+ABLATION_DTYPE_STEPS = 300
+ABLATION_REDUCED = {
+    "rounds": f"4000 -> {ABLATION_ROUNDS} (the lambda, K and interval "
+              "arms): the card script's 1,200 s; a count of "
+              f"{ABLATION_ROUNDS} reads 'not converged'",
+    "dtype_steps": f"800 -> {ABLATION_DTYPE_STEPS}"}
+#: the plain path's run on the card at every point, and a planted fault
+#: (beta 1% high, the plain path) at three points, over their first
+#: ABLATION_PLAIN_ROUNDS rounds, where the dynamics move fastest
+ABLATION_PLAIN_ROUNDS = 100
+ABLATION_PLANTED = {"beta_x1.01": dict(beta=0.35 * 1.01)}
+#: (arm, point, the point's run: condition number, interval, FrODO)
+ABLATION_PLANTED_POINTS = (
+    ("lambda_sensitivity", "cond10/lam=0.2", 10.0, 1, dict(lam=0.2)),
+    ("expsum_K", "K=8", 100.0, 1, dict(memory_mode="expsum", K=8)),
+    ("consensus_interval_H", "H=8", 100.0, 8, {}))
+# Per-round error (mean distance to x*), kernel path vs plain path: the
+# kernels form -(a g + b M) in f32 with one rounding where the plain path
+# rounds each term, and the dynamics carry that rounding.  On an H100
+# (700 W) the two parted by 3.9e-6 at most over 100 (and over 300) rounds
+# at the 22 points, while beta 1% high departed by 2.6e-3 to 4.3e-3 at the
+# three planted points (the phase's kernel_vs_plain readings).  Iteration
+# counts are not compared: the error oscillates as it decays, and where a
+# dip grazes 1e-6 that rounding moves the count by a whole swing (lambda
+# = 0.1, cond 10: 274 rounds on the card, 323 in the JAX script on the
+# CPU).
+ABLATION_ERR_TOL = dict(rtol=1e-3, atol=1e-5)
+
+
+def dryrun_phase(dev, out: str, llm_main: dict) -> dict:
+    """The dry-run over every arch x shape on the meta path (each record
+    ``ok``, or skipped with the reason of ``registry.shape_supported``),
+    then the probed pair on the card: steps at trip counts 2 and 3,
+    extrapolated to the model's depth and to the llm_train run's."""
+    from repro_torch.configs import registry as REG
+    from repro_torch.configs.base import INPUT_SHAPES
+    from repro_torch.experiments import roofline as RF
+    from repro_torch.kernels import frodo_update as KU
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun as DR
+
+    t0 = time.perf_counter()
+    check(DR.main(["--all", "--device", "cuda", "--out", out]) == 0,
+          "dry-run --all recorded an error")
+    meta_s = time.perf_counter() - t0
+    recs = {(r["arch"], r["shape"]): r for r in RF.load_records(out)}
+    check(len(recs) == len(REG.ARCH_IDS) * len(INPUT_SHAPES),
+          f"dry-run records: {len(recs)}")
+    for (arch, shape), r in recs.items():
+        ok, reason = REG.shape_supported(REG.get_config(arch),
+                                         INPUT_SHAPES[shape])
+        check(r["status"] == ("ok" if ok else "skipped")
+              and r.get("reason", "") == reason,
+              f"dry-run {arch} x {shape}: {r['status']} {r.get('reason')}")
+
+    arch, shape = DRYRUN_PROBE
+    cfg = REG.get_config(arch)
+    n_leaves = len(meta_leaves(cfg, DR.N_AGENTS))
+    KU.reset_launches()
+    t0 = time.perf_counter()
+    rec = DR.run_one(arch, shape, out, probes=True, device=dev)
+    probe_s = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    check(rec["status"] == "ok", f"dry-run probe: {rec.get('error')}")
+    # two probes (2 and 3 layers: the same leaves, stacked), two steps each
+    check(launches == {"frodo_exact_update": 0,
+                       "frodo_expsum_update": 4 * n_leaves},
+          f"exp-sum launches on the dry-run probe: {launches}")
+    trips = rec["probe"]["trip_counts"]
+    check(all(t["device_ms"] > 0 and t["peak_bytes"] > 0
+              for t in trips.values()), f"probe readings: {trips}")
+    at_llm = DR._affine_extrapolate(trips["2"], trips["3"],
+                                    LLM["n_layers"])
+    emit("dryrun", nvidia_smi=nvidia_smi(), records=len(recs),
+         ok=sum(r["status"] == "ok" for r in recs.values()),
+         skipped={f"{a} x {s}": r["reason"] for (a, s), r in recs.items()
+                  if r["status"] == "skipped"},
+         meta_path_seconds=meta_s, probe_seconds=probe_s,
+         probe={"arch": arch, "shape": shape, "n_agents": rec["n_agents"],
+                "global_batch": rec["probe"]["global_batch"],
+                "reduced": rec["probe"]["reduced"], "K": 8,
+                "acc_dtype": "float32", "trip_counts": trips,
+                "launches": launches,
+                "extrapolated_to_depth": rec["extrapolated"],
+                "extrapolated_to_llm_train_depth": at_llm,
+                "llm_train_measured": dict(llm_main,
+                                           n_layers=LLM["n_layers"])},
+         memory_of_probed_pair=rec["memory"], fits=rec["fits"])
+    return {"launches": launches, "probe": rec}
+
+
+def roofline_phase(out: str, smi: str) -> dict:
+    """The port's roofline over the dry-run's records, headed by the card's
+    name and power limit."""
+    from repro_torch.experiments import roofline as RF
+
+    recs = RF.load_records(out)
+    text = RF.report(recs, card=smi)
+    with open(os.path.join(out, "roofline_torch.md"), "w") as f:
+        f.write(text)
+    rows = [l for l in text.splitlines() if l.startswith("| ")
+            and "| 1xH100 |" in l]
+    n_ok = sum(r["status"] == "ok" for r in recs)
+    check(text.startswith(f"Card: {smi}") and len(rows) == n_ok,
+          f"roofline: {len(rows)} rows for {n_ok} records")
+    probed = RF.roofline_terms(next(
+        r for r in recs if (r["arch"], r["shape"]) == DRYRUN_PROBE))
+    emit("roofline", nvidia_smi=smi, rows=len(rows),
+         probed_pair={k: probed[k] for k in (
+             "arch", "shape", "dominant", "t_compute_s", "t_memory_s",
+             "t_link_s", "mfu_bound", "mem_per_dev_gib", "fits_hbm",
+             "probe_device_ms")},
+         peaks={"bf16_flops_per_s": RF.PEAK_FLOPS, "hbm_bytes_per_s":
+                RF.HBM_BW, "hbm_per_card_bytes": RF.HBM_PER_CARD},
+         link_note=RF.LINK_NOTE)
+    return probed
+
+
+def regress_phase(dev, tmp: str) -> dict:
+    """``repro_torch.experiments.regress``: ``--check --exp exp1`` against
+    the committed baseline, then ``--record`` and ``--check`` into a temp
+    dir for serve (through the port's serve bench), train and exp2 (their
+    committed baselines hold JAX initial weights, which the card has no
+    JAX to draw)."""
+    import contextlib
+    import io
+
+    from repro_torch.experiments import regress as RG
+
+    def cli(*argv) -> tuple:
+        """(exit code, report) of one regress call; its per-metric report
+        and the runs' step lines go to a buffer, not the phase lines."""
+        report = os.path.join(tmp, "report.json")
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = RG.main([*argv, "--device", "cuda", "--report", report])
+        with open(report) as f:
+            return rc, json.load(f)
+
+    out = {}
+    t0 = time.perf_counter()
+    rc, rep = cli("--check", "--exp", "exp1")
+    check(rc == 0 and rep["passed"], f"regress --check exp1: {rep}")
+    out["exp1_vs_committed"] = {k: rep[k] for k in ("n_checks",
+                                                    "n_drifted")}
+    out["exp1_seconds"] = time.perf_counter() - t0
+    base_dir = os.path.join(tmp, "baselines_torch")
+    for exp in ("serve", "train", "exp2"):
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = RG.main(["--record", "--exp", exp, "--baseline-dir",
+                          base_dir, "--device", "cuda"])
+        check(rc == 0, f"regress --record {exp}")
+        rc, rep = cli("--check", "--exp", exp, "--baseline-dir", base_dir)
+        check(rc == 0 and rep["passed"],
+              f"regress {exp} round trip: {rep['n_drifted']} drifted")
+        out[f"{exp}_round_trip"] = {
+            "n_checks": rep["n_checks"], "n_drifted": rep["n_drifted"],
+            "steps": RG.DEFAULT_STEPS[exp],
+            "seconds": time.perf_counter() - t0}
+    emit("regress", nvidia_smi=nvidia_smi(), **out,
+         note="exp1 against the committed benchmarks/baselines/exp1.json "
+              "(timing bands under the 0.05 ms floor are skipped); exp3's "
+              "quadratic series in the exp3 phase through regress.check("
+              "keep=...); serve, train and exp2 recorded and checked on "
+              "the card's own weights")
+    return out
+
+
+def ablations_phase(dev, tmp: str) -> dict:
+    """The four ablation arms through the kernels at ABLATION_ROUNDS (the
+    launches of the path), each run's error trajectory against the plain
+    path's on the card, and a planted fault that must fail the same
+    check."""
+    import numpy as np
+    from repro_torch.experiments import ablations as AB
+    from repro_torch.kernels import frodo_update as KU
+    from repro_torch.kernels import ops
+
+    R_, S_, P_ = ABLATION_ROUNDS, ABLATION_DTYPE_STEPS, ABLATION_PLAIN_ROUNDS
+    arm_fns = (("lambda_sensitivity", AB.lambda_sensitivity),
+               ("expsum_K", AB.expsum_K),
+               ("consensus_interval_H", AB.consensus_interval))
+    KU.reset_launches()
+    t0 = time.perf_counter()
+    arms, secs, errs = {}, {}, {}
+    for key, fn in arm_fns:
+        t1 = time.perf_counter()
+        errs[key] = {}
+        arms[key] = fn(R_, dev, errors=errs[key])
+        secs[key] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    path = os.path.join(tmp, "ablate_dtype.jsonl")
+    arms["expsum_dtype"] = AB.expsum_dtype(path, steps=S_, device=dev)
+    secs["expsum_dtype"] = time.perf_counter() - t1
+    launches = dict(ops.LAUNCHES)
+    path_s = time.perf_counter() - t0
+    # one launch a round after the first: 12 lambda runs, exact T90 and 4
+    # interval runs through the exact kernel; 5 K runs and the 2 dtype
+    # runs through the exp-sum kernel
+    want = {"frodo_exact_update": 17 * (R_ - 1),
+            "frodo_expsum_update": 5 * (R_ - 1) + 2 * (S_ - 1)}
+    check(launches == want, f"ablation launches {launches} != {want}")
+    dt = arms["expsum_dtype"]
+    check(all(np.isfinite(dt[d]["final_error"]) for d in dt),
+          f"dtype arm: {dt}")
+
+    t1 = time.perf_counter()
+    plain, worst = {}, 0.0
+    for key, fn in arm_fns:
+        plain[key] = {}
+        fn(P_, dev, use_kernel=False, errors=plain[key])
+        for point, e in plain[key].items():
+            ok, err = close_np(errs[key][point][:P_], e, ABLATION_ERR_TOL)
+            check(ok, f"ablation {key} {point}: kernel vs plain errors "
+                  f"{err}")
+            worst = max(worst, err)
+    planted = {}
+    for name, fault in ABLATION_PLANTED.items():
+        for key, point, cond, interval, kw in ABLATION_PLANTED_POINTS:
+            e = AB._errors(AB._frodo(dev, False, **kw, **fault), cond, P_,
+                           interval, dev)
+            passes, err = close_np(errs[key][point][:P_], e,
+                                   ABLATION_ERR_TOL)
+            check(not passes, f"planted {name} at {key} {point} passes the "
+                  f"kernel vs plain check ({err})")
+            planted[f"{name}@{point}"] = err
+    emit("ablations", nvidia_smi=nvidia_smi(), rounds=R_, dtype_steps=S_,
+         reduced=ABLATION_REDUCED, seconds=path_s, seconds_by_arm=secs,
+         launches=launches, arms=arms,
+         kernel_vs_plain={"rounds": P_, "points": sum(len(v) for v in
+                                                      plain.values()),
+                          "max_abs_err": worst, "tol": ABLATION_ERR_TOL,
+                          "planted_max_abs_err": planted,
+                          "seconds": time.perf_counter() - t1})
+    return launches
+
+
+def harness_phase(dev, dryrun_dir: str, tmp: str) -> list:
+    """``repro_torch.experiments.run consensus roofline ablations`` on the
+    card (exp1, exp2 and kernels have phases of their own)."""
+    import contextlib
+    import io
+
+    from repro_torch.experiments import run as RUN
+
+    path = os.path.join(tmp, "harness.jsonl")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rows = RUN.main(["consensus", "roofline", "ablations", "--device",
+                         "cuda", "--ablation-rounds", str(ABLATION_ROUNDS),
+                         "--dryrun-dir", dryrun_dir, "--metrics-out", path])
+    names = [r[0] for r in rows]
+    cons = [r for r in rows if r[0].startswith("consensus_")]
+    check(len(cons) == 4 and all(r[2].endswith("clock=device") and r[1] > 0
+                                 for r in cons), f"consensus rows {cons}")
+    pairs = [r for r in rows if r[0] == "roofline_pairs_analyzed"]
+    check(pairs == [("roofline_pairs_analyzed", 0.0, "count=39")],
+          f"roofline rows: {pairs}")
+    check(sum(n.startswith("ablation_") for n in names) == 6,
+          f"ablation rows: {names}")
+    check(buf.getvalue().splitlines()[0] == "name,us_per_call,derived",
+          "harness CSV header")
+    emit("harness", nvidia_smi=nvidia_smi(),
+         which=["consensus", "roofline", "ablations"],
+         ablation_rounds=ABLATION_ROUNDS, rows=[
+             r for r in rows if not r[0].startswith("roofline_")
+             or r[0] == "roofline_pairs_analyzed"],
+         roofline_rows=sum(n.startswith("roofline_") for n in names) - 1)
+    return rows
 
 
 def main() -> int:
@@ -2139,11 +2448,20 @@ def main() -> int:
     hyb = llm_train_hybrid(dev)
     llm["launches"].update(hyb["launches"])
     serve = serve_phase(dev)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    dryrun_dir = os.path.join(tmp, "dryrun_torch")
+    dry = dryrun_phase(dev, dryrun_dir, llm["main"])
+    roofline_phase(dryrun_dir, smi)
+    regress_phase(dev, tmp)
+    launches_abl = ablations_phase(dev, tmp)
+    harness_phase(dev, dryrun_dir, tmp)
     per_path = {name: {"exp2": launches_exp2[name],
                        "exp1_point": launches_exp1[name],
                        "exp3": launches_exp3[name],
                        **{p: c[name] for p, c in llm["launches"].items()},
-                       **{p: c[name] for p, c in serve["launches"].items()}}
+                       **{p: c[name] for p, c in serve["launches"].items()},
+                       "dryrun_probe": dry["launches"][name],
+                       "ablations": launches_abl[name]}
                 for name in ("frodo_exact_update", "frodo_expsum_update")}
 
     # ----------------------------------------------------------- timing

@@ -1,10 +1,18 @@
-"""Architecture registry: the JAX package's ``repro.configs.registry``
-without its ``input_specs`` (``jax.ShapeDtypeStruct`` stand-ins for the
-dry-run, which is not ported yet)."""
+"""Architecture registry + per-arch input specs: the port of the JAX
+package's ``repro.configs.registry``.
+
+``input_specs(cfg, shape, n_agents)`` returns the inputs of each step
+function as tensors on the ``meta`` device (shape and dtype, no storage),
+where the JAX package returns ``jax.ShapeDtypeStruct`` stand-ins.  Training
+inputs carry a leading agent dim; decode inputs are unstacked (serving has
+no agents).
+"""
 from __future__ import annotations
 
 import importlib
-from typing import Optional
+from typing import Dict, Optional
+
+import torch
 
 from repro_torch.configs.base import InputShape, ModelConfig
 
@@ -77,3 +85,42 @@ def scan_trip_count(cfg: ModelConfig) -> int:
     if cfg.family == "moe" and cfg.moe and cfg.moe.n_dense_layers:
         return cfg.n_layers - cfg.moe.n_dense_layers
     return cfg.n_layers
+
+
+# ------------------------------------------------------------ input specs
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ModelConfig, shape: InputShape,
+                n_agents: int = 1) -> Dict[str, torch.Tensor]:
+    """Meta-tensor inputs for train (agent-stacked), prefill or decode."""
+    B, S = shape.global_batch, shape.seq_len
+    i32, bf16 = torch.int32, torch.bfloat16
+    if shape.kind == "train":
+        if B % n_agents:
+            raise ValueError(f"global batch {B} not divisible by "
+                             f"{n_agents} agents")
+        Ba = B // n_agents
+        specs = {"tokens": _meta((n_agents, Ba, S), i32),
+                 "labels": _meta((n_agents, Ba, S), i32)}
+        if cfg.family == "vlm":
+            specs["img_embeds"] = _meta(
+                (n_agents, Ba, cfg.n_img_tokens, cfg.d_model), bf16)
+            specs["img_pos"] = _meta((n_agents, Ba, cfg.n_img_tokens), i32)
+        if cfg.family == "audio":
+            specs["frames"] = _meta(
+                (n_agents, Ba, cfg.n_frames, cfg.d_model), bf16)
+        return specs
+    if shape.kind == "prefill":
+        specs = {"tokens": _meta((B, S), i32)}
+        if cfg.family == "vlm":
+            specs["img_embeds"] = _meta((B, cfg.n_img_tokens, cfg.d_model),
+                                        bf16)
+            specs["img_pos"] = _meta((B, cfg.n_img_tokens), i32)
+        if cfg.family == "audio":
+            specs["frames"] = _meta((B, cfg.n_frames, cfg.d_model), bf16)
+        return specs
+    # decode: one token + position (the cache is threaded separately)
+    return {"tokens": _meta((B, 1), i32)}

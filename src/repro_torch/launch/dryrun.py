@@ -1,0 +1,302 @@
+"""One-card dry-run: per (arch x shape), the argument bytes of each step
+function at the shape's full size, whether they fit one 80 GB H100, the
+analytic FLOPs and HBM bytes, and (``--probe``) a real step on the card.
+The port of the JAX package's ``repro.launch.dryrun``.
+
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --all --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --device cuda \\
+        --arch h2o-danube-1.8b --shape train_4k --probe
+
+The JAX dry-run lowers and compiles every step on 512 placeholder TPU
+devices and reads XLA's memory and cost analysis.  There is no CUDA
+counterpart of lowering without running, so here:
+
+* ``memory`` is counted exactly from ``meta``-device trees (shapes and
+  dtypes, no storage) at the shape's full size: for a train shape the
+  agent-stacked parameters, their gradients and the FrODO state of
+  ``TrainConfig`` (exact memory: T history slots in the parameter dtype;
+  exp-sum: K accumulators in ``acc_dtype``) plus the batch of
+  ``registry.input_specs``; for prefill the parameters and the batch; for
+  decode the parameters and the cache of ``decode.init_cache`` under
+  ``registry.decode_window``, plus the tokens.  Activations are not in it.
+* ``analytic`` is ``utils.flops.analytic`` with ``hbm_bytes``.
+* ``--probe`` is the counterpart of the JAX affine cost probes: it runs one
+  real step at scan trip counts 2 and 3 (``registry.reduced_layers``) on
+  the device, at the shape's sequence length and a global batch cut to
+  what fits (``PROBE_BATCH``, listed under ``reduced``), measures the peak
+  device memory (``max_memory_allocated``) and the step's device ms (CUDA
+  events around it, after a warm-up step), and extrapolates both affine in
+  L to ``registry.scan_trip_count(cfg)``.  On the CPU a probe records the
+  host ms instead, and no device number.
+
+One card, no mesh: the JAX flags ``--multi-pod`` and ``--both-meshes`` and
+the record's collective schedule (the partitioned HLO's collectives) wait
+for the distributed slice.  Records are JSON files in ``--out``
+(``experiments/dryrun_torch``), read by ``repro_torch.experiments.roofline``.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import time
+import traceback
+from typing import Any, Dict, Optional, Sequence, Union
+
+import torch
+
+from repro_torch import tree as TR
+from repro_torch.configs import registry as REG
+from repro_torch.configs.base import INPUT_SHAPES, InputShape, ModelConfig
+from repro_torch.data.synthetic import TokenPipeline, augment_modalities
+from repro_torch.device import Device, resolve_device, set_full_precision
+from repro_torch.models import decode as D
+from repro_torch.models import transformer as T
+from repro_torch.training import train_step as TS
+from repro_torch.utils import flops as FL
+
+MESH = "1xH100"
+HBM_PER_CARD = 80e9                 # bytes, one H100 SXM5
+N_AGENTS = 2                        # the trainer's default (launch.train)
+#: the probes' global batch by kind: two agents x two sequences for train
+#: (the card trainer's shape), one sequence otherwise
+PROBE_BATCH = {"train": 4, "prefill": 1, "decode": 1}
+
+
+#: the trainer's defaults (exp-sum, K = 8, f32 accumulators, remat), with
+#: the FrODO update through the kernels (their plain versions on the CPU)
+TRAIN_CONFIG = TS.TrainConfig(use_kernel=True)
+
+
+# ------------------------------------------------------------ argument bytes
+
+def tree_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in TR.leaves(tree)
+               if isinstance(t, torch.Tensor))
+
+
+def argument_bytes(cfg: ModelConfig, shape: InputShape,
+                   tc: TS.TrainConfig, n_agents: int,
+                   window: Optional[int]) -> Dict[str, int]:
+    """The step's inputs at full size, from meta trees, by part."""
+    params = FL.meta_params(cfg)
+    p = tree_bytes(params)
+    if shape.kind == "train":
+        stacked = TR.tree_map(lambda t: t.expand((n_agents,) + t.shape),
+                              params)
+        opt_state = TS.build_optimizer(tc).init(stacked)
+        mem = {"params_bytes": n_agents * p, "grads_bytes": n_agents * p,
+               "opt_state_bytes": tree_bytes(opt_state),
+               "batch_bytes": tree_bytes(REG.input_specs(cfg, shape,
+                                                         n_agents))}
+    elif shape.kind == "prefill":
+        mem = {"params_bytes": p,
+               "batch_bytes": tree_bytes(REG.input_specs(cfg, shape))}
+    else:
+        cache = D.init_cache(cfg, shape.global_batch, shape.seq_len, window,
+                             device="meta")
+        mem = {"params_bytes": p, "cache_bytes": tree_bytes(cache),
+               "batch_bytes": tree_bytes(REG.input_specs(cfg, shape))}
+    mem["argument_size_in_bytes"] = sum(mem.values())
+    return mem
+
+
+# ------------------------------------------------------------------- probes
+
+def _probe_batch(cfg: ModelConfig, shape: InputShape, batch: int,
+                 n_agents: int, dev) -> Dict[str, torch.Tensor]:
+    """A seeded batch on ``dev`` in the layout of ``input_specs``."""
+    if shape.kind == "train":
+        b = next(augment_modalities(iter(TokenPipeline(
+            vocab=cfg.vocab, seq_len=shape.seq_len,
+            batch_per_agent=batch // n_agents, n_agents=n_agents)), cfg))
+    else:
+        S = shape.seq_len if shape.kind == "prefill" else 1
+        b = next(augment_modalities(iter(TokenPipeline(
+            vocab=cfg.vocab, seq_len=S, batch_per_agent=batch,
+            n_agents=1)), cfg))
+        b = {k: v[0] for k, v in b.items() if k != "labels"}
+    return {k: torch.as_tensor(v, device=dev) for k, v in b.items()}
+
+
+def _probe_step(cfg: ModelConfig, shape: InputShape, tc: TS.TrainConfig,
+                n_agents: int, window: Optional[int], batch: int,
+                dev) -> Dict[str, Any]:
+    """One warm-up and one measured step of ``cfg`` on ``dev``."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    if shape.kind == "train":
+        state = TS.init_train_state(gen, cfg, tc, n_agents, dev)
+        step = TS.make_train_step(cfg, tc, n_agents)
+        b = _probe_batch(cfg, shape, batch, n_agents, dev)
+
+        def run():
+            nonlocal state
+            state, _ = step(state, b)
+    else:
+        params = T.init_params(gen, cfg, (), dev)
+        b = _probe_batch(cfg, shape, batch, n_agents, dev)
+        if shape.kind == "prefill":
+            def run():
+                with torch.no_grad():
+                    T.forward(params, b, cfg)
+        else:
+            cache = D.init_cache(cfg, batch, shape.seq_len, window,
+                                 device=dev)
+
+            def run():
+                with torch.no_grad():
+                    D.decode_step(params, cache, b["tokens"],
+                                  shape.seq_len - 1, cfg, window)
+    run()                                          # warm-up
+    if not on_card:
+        t0 = time.perf_counter()
+        run()
+        return {"host_ms": (time.perf_counter() - t0) * 1e3}
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize(dev)
+    start.record()
+    run()
+    end.record()
+    torch.cuda.synchronize(dev)
+    return {"device_ms": start.elapsed_time(end),
+            "peak_bytes": torch.cuda.max_memory_allocated(dev)}
+
+
+def _affine_extrapolate(p2: Dict[str, Any], p3: Dict[str, Any],
+                        L: int) -> Dict[str, Any]:
+    """f(L) = a + b*L from probes at trip counts 2 and 3."""
+    out: Dict[str, Any] = {"trip_count": L}
+    for key in sorted(set(p2) & set(p3)):
+        b = p3[key] - p2[key]
+        out[key] = (p2[key] - 2 * b) + b * L
+    return out
+
+
+def probe(cfg: ModelConfig, shape: InputShape, tc: TS.TrainConfig,
+          n_agents: int, window: Optional[int], dev) -> Dict[str, Any]:
+    batch = PROBE_BATCH[shape.kind]
+    L = REG.scan_trip_count(cfg)
+    trips = {k: _probe_step(REG.reduced_layers(cfg, k), shape, tc, n_agents,
+                            window, batch, dev) for k in (2, 3)}
+    return {"probe": {"trip_counts": {str(k): v for k, v in trips.items()},
+                      "global_batch": batch,
+                      "reduced": {
+                          "global_batch": f"{shape.global_batch} -> {batch}",
+                          "n_layers": f"{cfg.n_layers} -> scan trip counts "
+                                      f"2 and 3, extrapolated affine in L "
+                                      f"to {L}"}},
+            "extrapolated": _affine_extrapolate(trips[2], trips[3], L)}
+
+
+# --------------------------------------------------------------------- runs
+
+def run_one(arch: str, shape: Union[str, InputShape],
+            out_dir: Optional[str] = None, probes: bool = False,
+            cfg_override=None, device: Device = None) -> Dict[str, Any]:
+    """One record; ``shape`` is a name of ``INPUT_SHAPES`` or a shape."""
+    dev = resolve_device(device)
+    cfg = cfg_override or REG.get_config(arch)
+    shape = INPUT_SHAPES[shape] if isinstance(shape, str) else shape
+    ok, reason = REG.shape_supported(cfg, shape)
+    rec: Dict[str, Any] = {"arch": arch, "shape": shape.name, "mesh": MESH,
+                           "kind": shape.kind}
+    if not ok:
+        rec["status"] = "skipped"
+        rec["reason"] = reason
+        _emit(rec, out_dir)
+        return rec
+    tc = TRAIN_CONFIG
+    window = REG.decode_window(cfg, shape) if shape.kind == "decode" else None
+    n_agents = N_AGENTS if shape.kind == "train" else 1
+    try:
+        t0 = time.time()
+        if shape.kind == "train":
+            rec["n_agents"] = n_agents
+        if shape.kind == "decode":
+            rec["window_override"] = window
+        rec["memory"] = argument_bytes(cfg, shape, tc, n_agents, window)
+        rec["fits"] = (rec["memory"]["argument_size_in_bytes"]
+                       <= HBM_PER_CARD)
+        rec["count_s"] = round(time.time() - t0, 3)
+        rec["analytic"] = FL.analytic(cfg, shape, shape.kind, window or 0,
+                                      remat=tc.remat)
+        rec["analytic"]["hbm_bytes"] = FL.hbm_bytes(
+            cfg, shape, shape.kind, n_agents=n_agents, K=tc.K,
+            window=window or 0)
+        if probes:
+            set_full_precision()
+            t1 = time.time()
+            rec["device"] = (torch.cuda.get_device_name(dev)
+                             if dev.type == "cuda" else str(dev))
+            rec.update(probe(cfg, shape, tc, n_agents, window, dev))
+            rec["probe_s"] = round(time.time() - t1, 1)
+        rec["status"] = "ok"
+    except Exception as e:  # noqa: BLE001 — record it, keep sweeping
+        rec["status"] = "error"
+        rec["error"] = f"{type(e).__name__}: {e}"
+        rec["traceback"] = traceback.format_exc()[-2000:]
+    _emit(rec, out_dir)
+    return rec
+
+
+def _emit(rec: Dict[str, Any], out_dir: Optional[str]):
+    line = (f"[{rec['status']:7s}] {rec['arch']:22s} {rec['shape']:12s} "
+            f"{rec['mesh']:8s}")
+    if rec["status"] == "ok":
+        mem = rec["memory"]["argument_size_in_bytes"]
+        line += (f" exec_flops={rec['analytic']['exec_flops']:.3e}"
+                 f" args={mem / 2 ** 30:.2f}GiB"
+                 f" fits={'y' if rec['fits'] else 'N'}")
+        ext = rec.get("extrapolated")
+        if ext:
+            line += " probe: " + " ".join(
+                f"{k}={v:.4g}" for k, v in ext.items() if k != "trip_count")
+    elif rec["status"] == "error":
+        line += " " + rec["error"][:160]
+    else:
+        line += " " + rec.get("reason", "")[:100]
+    print(line, flush=True)
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+        fname = f"{rec['arch']}_{rec['shape']}_{rec['mesh']}.json"
+        rec = dict(rec)
+        rec.pop("traceback", None)
+        with open(os.path.join(out_dir, fname), "w") as f:
+            json.dump(rec, f, indent=1)
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    ap = argparse.ArgumentParser(
+        prog="python -m repro_torch.launch.dryrun", description=__doc__,
+        formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--arch", choices=REG.ARCH_IDS)
+    ap.add_argument("--shape", choices=list(INPUT_SHAPES))
+    ap.add_argument("--all", action="store_true",
+                    help="every arch x shape (as with neither --arch nor "
+                         "--shape)")
+    ap.add_argument("--out", default="experiments/dryrun_torch")
+    ap.add_argument("--probe", action="store_true",
+                    help="also run steps at trip counts 2 and 3 on the "
+                         "device and extrapolate peak memory and ms")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default; raises without a card) or cpu")
+    args = ap.parse_args(argv)
+    resolve_device(args.device)
+    archs = list(REG.ARCH_IDS) if args.all or not args.arch else [args.arch]
+    shapes = (list(INPUT_SHAPES) if args.all or not args.shape
+              else [args.shape])
+    n_bad = 0
+    for arch in archs:
+        for shape in shapes:
+            rec = run_one(arch, shape, args.out or None, probes=args.probe,
+                          device=args.device)
+            n_bad += rec["status"] == "error"
+    return 1 if n_bad else 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -36,12 +36,19 @@ MAX_DRAW_ELEMENTS = 1 << 30
 def _draw(shape: tuple, dtype, device, fill) -> torch.Tensor:
     """A leaf of ``shape`` in ``dtype`` whose values ``fill(f32 tensor)``
     draws and returns, at most ``MAX_DRAW_ELEMENTS`` f32 elements a draw.
-    The slices are drawn in storage order, one after another from the same
-    generator, so on the CPU the sliced draw is bit-equal to one draw of
-    the whole leaf (on CUDA each draw takes its own Philox offset: seeded
-    and deterministic, but other numbers).  A normal draw on the CPU fills
-    16 numbers at a time, so for it this holds when each slice is a
-    multiple of 16 elements."""
+    A larger leaf is cut, along its flattened leading axes, into blocks of
+    whole rows (a row: the fewest trailing axes that fit one draw), each
+    block as many rows as fit, rounded down to a multiple of 16 elements
+    where a block of 16 or more fits.  The blocks are drawn in storage
+    order, one after another from the same generator, so on the CPU the
+    cut draw is bit-equal to one draw of the whole leaf (on CUDA each draw
+    takes its own Philox offset: seeded and deterministic, but other
+    numbers).  A normal draw on the CPU fills 16 numbers at a time, so for
+    it this holds when each block is a multiple of 16 elements.  On the
+    ``meta`` device there is nothing to draw: the leaf comes back empty,
+    at once (a full-size tree's shapes and dtypes, for counting)."""
+    if torch.device(device if device is not None else "cpu").type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     n, max_elements = int(np.prod(shape)), MAX_DRAW_ELEMENTS
     if n <= max_elements:
         return fill(torch.empty(shape, dtype=torch.float32,
@@ -49,11 +56,18 @@ def _draw(shape: tuple, dtype, device, fill) -> torch.Tensor:
     lead = 0                   # split the fewest leading axes that will do
     while int(np.prod(shape[lead:])) > max_elements and lead < len(shape):
         lead += 1
+    row_shape = tuple(shape[lead:])
+    row = int(np.prod(row_shape))
+    rows = max_elements // row
+    step = 16 // math.gcd(row, 16)     # rows a multiple of 16 elements
+    if rows >= step:
+        rows -= rows % step
     out = torch.empty(shape, dtype=dtype, device=device)
-    flat = out.view((-1,) + tuple(shape[lead:]))
-    for i in range(flat.shape[0]):
-        flat[i] = fill(torch.empty(shape[lead:], dtype=torch.float32,
-                                   device=device))
+    flat = out.view((-1,) + row_shape)
+    for i in range(0, flat.shape[0], rows):
+        j = min(i + rows, flat.shape[0])
+        flat[i:j] = fill(torch.empty((j - i,) + row_shape,
+                                     dtype=torch.float32, device=device))
     return out
 
 

@@ -14,7 +14,12 @@ from repro_torch.device import resolve_device  # noqa: E402
 from repro_torch.experiments import exp1_quadratic as E1  # noqa: E402
 from repro_torch.experiments import exp2_federated as E  # noqa: E402
 from repro_torch.experiments import exp3_faults as E3  # noqa: E402
+from repro_torch.experiments import ablations as AB  # noqa: E402
 from repro_torch.experiments import kernel_bench as KB  # noqa: E402
+from repro_torch.experiments import regress as RG  # noqa: E402
+from repro_torch.experiments import run as RUN  # noqa: E402
+from repro_torch.experiments import serve_bench as SB  # noqa: E402
+from repro_torch.launch import dryrun as DR  # noqa: E402
 from repro_torch.launch import serve as LS  # noqa: E402
 from repro_torch.launch import train as LT  # noqa: E402
 
@@ -97,6 +102,20 @@ def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
                  lambda: LS.main(["--requests", "1"]),
                  lambda: LS.main(["--batch", "1"]),
                  lambda: LS.load_model("mamba2-780m", True, 0)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    for call in (lambda: DR.main(["--arch", "mamba2-780m", "--shape",
+                                  "train_4k", "--out", ""]),
+                 lambda: DR.run_one("mamba2-780m", "train_4k"),
+                 lambda: RG.main(["--check", "--exp", "exp1"]),
+                 lambda: RG.check("exp1", RG.DEFAULT_BASELINE_DIR, None,
+                                  None, None, False),
+                 lambda: SB.main(["--metrics-out", "unused.jsonl"]),
+                 lambda: SB.run_bench("unused.jsonl", n_requests=1),
+                 lambda: AB.main(["--rounds", "2", "--out", ""]),
+                 lambda: AB.expsum_K(rounds=2),
+                 lambda: AB.expsum_dtype(steps=2),
+                 lambda: RUN.main(["consensus"])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     for call in (lambda: E1.run_batch([[1.0, 0.0]], [0.8], [0.3], [0.15],

@@ -113,13 +113,16 @@ def test_dense_init_is_seeded_and_truncated():
     assert not torch.equal(a[0], a[1])
 
 
-@pytest.mark.parametrize("max_elements", [64 * 8 * 4, 8 * 4, 16, 3, 1])
+@pytest.mark.parametrize("max_elements",
+                         [64 * 8 * 4, 8 * 4, 16, 3, 1, 96, 100])
 def test_sliced_init_is_one_draw(max_elements, monkeypatch):
-    """A leaf past ``MAX_DRAW_ELEMENTS`` is drawn slice by slice along its
+    """A leaf past ``MAX_DRAW_ELEMENTS`` is drawn block by block along its
     leading axes into a leaf in its own dtype; on the CPU the numbers are
     those of one draw of the whole leaf, bit for bit (dense and embedding
     inits; the embedding's normal draw fills 16 numbers at a time, so its
-    slices of 48 x 16 and 16 elements)."""
+    blocks of 48 x 16 and 16 elements).  At 96 and 100 a block holds
+    several rows: 3 rows of 8 x 4 (dense) or 6 of 16 (embedding), 96
+    elements each, the 100's rounded down to a multiple of 16."""
     def dense():
         return L.dense_init(torch.Generator().manual_seed(3), 64, 8, 4,
                             dtype=torch.bfloat16, lead=(3, 2))
@@ -128,13 +131,24 @@ def test_sliced_init_is_one_draw(max_elements, monkeypatch):
         return L.embed_init(torch.Generator().manual_seed(3), 48, 16,
                             torch.bfloat16, (3,))["table"]
 
-    for fn in ((dense, embed) if max_elements % 16 == 0 else (dense,)):
+    for fn in ((dense, embed) if max_elements % 16 == 0
+               or max_elements > 16 else (dense,)):
         whole = fn()
         with monkeypatch.context() as m:
             m.setattr(L, "MAX_DRAW_ELEMENTS", max_elements)
             sliced = fn()
         assert sliced.dtype == torch.bfloat16
         assert torch.equal(whole.view(torch.int16), sliced.view(torch.int16))
+    if max_elements in (96, 100):          # blocks of several whole rows
+        blocks = []
+
+        def fill(t):
+            blocks.append(tuple(t.shape))
+            return t.fill_(1.0)
+
+        monkeypatch.setattr(L, "MAX_DRAW_ELEMENTS", max_elements)
+        out = L._draw((3, 2, 64, 8, 4), torch.bfloat16, None, fill)
+        assert blocks == [(3, 8, 4)] * 128 and bool((out == 1).all())
 
 
 # --------------------------------------------------------------- attention

@@ -8,9 +8,11 @@ JAX initial weights.
   clock-free serve.step and serve.request columns (tokens by their
   checksums), the same summary; the CLI on the CPU in both modes and its
   flags.
-* ``-m regression``: the port's run_traffic(device="cpu") passes the
-  committed golden baseline benchmarks/baselines/serve.json (recorded on
-  mamba2-780m) under obs.regress's default tolerance, timing excluded.
+* ``-m regression``: the port's serve bench
+  (repro_torch.experiments.serve_bench over run_traffic(device="cpu"))
+  passes the committed golden baseline benchmarks/baselines/serve.json
+  (recorded on mamba2-780m) under obs.regress's default tolerance, timing
+  excluded.
   The baseline was recorded with JAX's non-partitionable threefry PRNG, so
   the JAX initial weights are drawn inside
   jax.threefry_partitionable(False)."""
@@ -32,7 +34,7 @@ from repro_torch.obs.metrics import read_jsonl  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 #: wall-clock columns, dropped before comparing (the request ones are
-#: benchmarks/serve_bench.py's SERVE_VOLATILE_KEYS)
+#: the serve bench's SERVE_VOLATILE_KEYS)
 VOLATILE = ("ttft_ms", "e2e_ms", "decode_tokens_per_s")
 
 
@@ -141,26 +143,15 @@ def test_cli_flags(monkeypatch):
 
 @pytest.mark.regression
 def test_port_launcher_passes_the_serve_baseline(tmp_path):
-    from benchmarks.serve_bench import DEFAULT_ARCH, SERVE_VOLATILE_KEYS
+    """The port's serve bench (repro_torch.experiments.serve_bench, which
+    drives this launcher) on the JAX initial weights."""
+    from repro_torch.experiments import serve_bench as SB
     base = R.load_baseline(os.path.join(ROOT, "benchmarks", "baselines",
                                         "serve.json"))
-    raw = str(tmp_path / "raw.jsonl")
-    LS.run_traffic(arch=DEFAULT_ARCH, smoke=True,
-                   n_requests=base["meta"]["steps"],
-                   seed=base["meta"]["seed"], metrics_out=raw, quiet=True,
-                   device="cpu",
-                   init_fn=jax_init(DEFAULT_ARCH, partitionable=False))
     path = str(tmp_path / "serve.jsonl")
-    with open(raw) as src, open(path, "w") as dst:
-        for line in src:
-            rec = json.loads(line)
-            if rec.get("name") == "serve.request":
-                for k in SERVE_VOLATILE_KEYS:
-                    rec.pop(k, None)
-            rec.update(exp="serve", variant=f"{DEFAULT_ARCH}-smoke",
-                       seed=base["meta"]["seed"])
-            dst.write(json.dumps(rec) + "\n")
+    SB.run_bench(path, seed=base["meta"]["seed"],
+                 n_requests=base["meta"]["steps"], device="cpu",
+                 init_fn=jax_init(SB.DEFAULT_ARCH, partitionable=False))
     diffs = R.compare_to_baseline(base, path, R.Tolerance(),
                                   include_timing=False)
     assert diffs and all(d.passed for d in diffs), R.format_report(diffs)
-
