@@ -86,8 +86,9 @@ Phases, each printing one JSON line:
     attention), where planted faults on copies of the modules' source
     must fail the same check; traffic at full width (16 requests, or 8 for
     the MoE, MLA, vision and hybrid models; 8 slots; each whisper request
-    with its own frames; qwen3-moe, minicpm3, mamba2 and h2o-danube at
-    the cut depths of SERVE_TRAFFIC_LAYERS, the others at full depth) with
+    with its own frames; qwen3-moe, minicpm3, mamba2, h2o-danube,
+    recurrentgemma and phi-3-vision at the cut depths of
+    SERVE_TRAFFIC_LAYERS, whisper-tiny at full depth) with
     the first requests run alone and ``Engine.generate`` bit-equal to the
     packed run; tokens/s, TTFT, ms per step by phase and per prefill token, the
     busy share, peak memory, and one decode step over the full arena
@@ -111,11 +112,26 @@ Phases, each printing one JSON line:
     path's on the card, where a planted fault must fail;
 15. harness: ``repro_torch.experiments.run consensus roofline
     ablations`` (consensus timed by CUDA events);
-16. timing: CUDA-event medians of each kernel, its plain version and (exact)
+16. distributed: the collective forms (``core.consensus``) on NCCL at world
+    size 1 against ``mix_stacked`` (and whether NCCL's send to self ran
+    ``ring_mix``); h2o-danube-1.8b at full width, 2 layers, seq 4096, 2
+    agents x 2 sequences, exp-sum K = 8 with f32 accumulators through the
+    kernel, a clip that binds, 6 steps: the one-process stacked run, the
+    agent-sharded step at world size 1 on NCCL (bit-equal to it), and two
+    ranks (one agent each) sharing the card over gloo, each held against
+    the stacked run (every agent's loss, its accumulators' norms, its
+    parameters within two bf16 ulps), with ms/step, the all-reduce's ms and
+    bytes a step, peak memory and the exp-sum kernel's launches per rank;
+    a consensus skipped on rank 1 and a clip norm left unreduced must fail
+    the same check; then grouped MoE dispatch at qwen3-moe-30b-a3b's full
+    width (one MoE layer, 2 x 4096 tokens, bf16, 4 groups) against one
+    group at an ample capacity and against a plain per-group version at
+    the config's;
+17. timing: CUDA-event medians of each kernel, its plain version and (exact)
    one library call, beside the memory bound; the Exp 2 ms/step;
-17. profile: torch.profiler device time per launch of each kernel at each
+18. profile: torch.profiler device time per launch of each kernel at each
     Exp 2 leaf, and an Exp 2 step's device time, busy share and top kernels;
-18. kernel_bench: the rows of ``repro_torch.experiments.kernel_bench``,
+19. kernel_bench: the rows of ``repro_torch.experiments.kernel_bench``,
     each kernel held against its plain version on the row's inputs (at
     qwen3-moe's ``experts/gate`` the bf16 exp-sum state is past 2^31
     elements), with planted faults in the plain version that must fail.
@@ -125,8 +141,9 @@ exp1_point, exp3, llm_train, llm_train_exact, llm_train_expsum_bf16acc,
 llm_train_mamba2, llm_train_qwen3_moe, llm_train_minicpm3,
 llm_train_minicpm3_exact, llm_train_phi3_vision, llm_train_whisper,
 llm_train_recurrentgemma, serve_<arch> for the seven served models
-(none on the serve paths), dryrun_probe and ablations, each
-counted from 0 just before the path runs), the
+(none on the serve paths), dryrun_probe, ablations,
+distributed_stacked, distributed_world1 and distributed_2ranks (the two
+ranks' sum), each counted from 0 just before the path runs), the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Any failed
 check raises, so the script exits non-zero and prints no result.
 """
@@ -1519,14 +1536,22 @@ SERVE_TRAFFIC = {"h2o-danube-1.8b": (SERVE_FULL, 4),
 #: host 1.12-1.53 times faster than the slowest in the phases that did
 #: not change: 1,104 s at its pace.  h2o-danube's cut saves ~35 s more
 #: (~45 s at that pace); with it the script took 850.7 s, ~1,007 s at
-#: that pace.
+#: that pace.  The distributed phase added 40 s, and the whole script took
+#: 992.3 s with Exp 3 at 204 s; the slowest host seen ran Exp 3 in 224 s
+#: and the rest ~1.2 times slower alike, so ~1,090 s at its pace.
+#: recurrentgemma-9b's traffic and then phi-3-vision's are cut: their
+#: serving took 23 s and 47 s in place of 48 s and 61 s, and the script
+#: 999.1 s on a host that ran Exp 3 in 211.5 s, ~1,058 s at that pace.
 SERVE_TRAFFIC_CUT = ("traffic only, decode vs forward at full depth: "
                      "the script's 1,200 s limit")
 SERVE_TRAFFIC_LAYERS = {
     "qwen3-moe-30b-a3b": (12, "48 -> 12, " + SERVE_TRAFFIC_CUT),
     "minicpm3-4b": (16, "62 -> 16, " + SERVE_TRAFFIC_CUT),
     "mamba2-780m": (16, "48 -> 16, " + SERVE_TRAFFIC_CUT),
-    "h2o-danube-1.8b": (8, "24 -> 8, " + SERVE_TRAFFIC_CUT)}
+    "h2o-danube-1.8b": (8, "24 -> 8, " + SERVE_TRAFFIC_CUT),
+    "recurrentgemma-9b": (6, "38 -> 6 (two rec, rec, local-attention "
+                             "groups, no tail), " + SERVE_TRAFFIC_CUT),
+    "phi-3-vision-4.2b": (16, "32 -> 16, " + SERVE_TRAFFIC_CUT)}
 #: scheduler steps under the profiler (busy share)
 SERVE_PROFILE = (12, 15)
 #: serve.step columns that do not read a clock
@@ -1863,10 +1888,19 @@ def serve_traffic(dev, arch, cfg, params, gen, tmp) -> tuple:
 
 
 def first_layers(cfg, params, n: int) -> tuple:
-    """``(cfg, params)`` cut to the first ``n`` layers of the model's one
-    layer stack (views of the loaded tensors: nothing is drawn again)."""
+    """``(cfg, params)`` cut to the first ``n`` layers of the model's layer
+    stack (views of the loaded tensors: nothing is drawn again); a hybrid
+    model to its first ``n / len(pattern)`` whole groups, without the tail
+    blocks."""
     from repro_torch import tree as TR
 
+    if cfg.family == "hybrid":
+        k = len(cfg.hybrid.pattern)
+        check(n % k == 0, f"{cfg.arch_id}: {n} layers are not whole groups")
+        kept = {key: v for key, v in params.items() if key != "tail_blocks"}
+        return cfg.replace(n_layers=n), {
+            **kept, "groups": TR.tree_map(lambda t: t[:n // k],
+                                          params["groups"])}
     check(set(params) <= {"embed", "ln_f", "lm_head", "blocks"},
           f"{cfg.arch_id}: a depth cut needs one layer stack, not "
           f"{sorted(params)}")
@@ -2270,6 +2304,499 @@ def harness_phase(dev, dryrun_dir: str, tmp: str) -> list:
     return rows
 
 
+# ------------------------------------------------------------ distributed
+#: the agent-sharded trainer: h2o-danube-1.8b at full width, 2 of its 24
+#: layers, the train_4k sequence, 2 agents x 2 sequences, exp-sum K = 8
+#: with f32 accumulators through the exp-sum kernel, remat, seed 0; the
+#: one-process stacked run, the same step at world size 1 on NCCL, and two
+#: ranks (one agent each) that share the one card over gloo.  The clip
+#: (0.1 sqrt(A)) binds at every step (the phase checks it), so a norm left
+#: unreduced changes the update.
+DIST = dict(n_layers=2, seq=4096, batch_per_agent=2, agents=2, K=8,
+            grad_clip=0.1, steps=6, planted_steps=1, ranks=2)
+DIST_REDUCED = {
+    "n_layers": "24 -> 2 (the dry-run probe's 2-layer step)",
+    "global_batch": "256 -> 4 (2 agents x 2 sequences of train_4k's 4096)",
+    "ranks": "2 ranks, one agent each, share one H100 over gloo (NCCL "
+             "refuses two ranks on one card); NCCL runs at world size 1"}
+#: the world-1 group's backend (each rank its own card)
+DIST_BACKEND_1 = "nccl"
+# The two ranks against the stacked run: per-agent loss rtol 1e-4 (the
+# trainer tolerance of PERF.md section 2); parameters within DIST_ULPS bf16
+# ulps of the stacked run's (|a - b| <= DIST_ULPS * 2^-7 |b|, 2^-7 |b|
+# being one bf16 ulp or more).  The only arithmetic that differs is the
+# order of the sums across ranks (the clip norm's, and the consensus
+# mean's of two agents, which is exact): a parameter that rounds the other
+# way moves by one ulp and carries that into the next steps.  The two
+# planted faults must fail the loss limit by step 2.
+DIST_LOSS_TOL = dict(rtol=1e-4, atol=0.0)
+DIST_ULPS = 2
+# Each leaf's f32 norm per step and agent, of the parameters and of the
+# exp-sum accumulators (the clipped gradients' memory).  A bf16 update that
+# rounds away (most do at alpha 0.02 under a clip that binds) leaves no
+# trace in the parameters or the loss, but always in the accumulators, so
+# a clip scaled by the wrong norm shows there (by ~40% at two agents: one
+# agent's gradients have ~1/sqrt(2) of both's norm); a consensus skipped
+# shows in the parameter norms at once (one agent's draw against the mean
+# of two: ~40%).  Healthy ranks differ from the stacked run in the clip
+# norm's last bits, which can round a bf16 gradient element the other
+# way: one bf16 ulp (2^-8 relative) of that element's share of the norm,
+# in every step's term at worst.  The limit is four such ulps, 2^-6
+# relative.
+DIST_STATE_TOL = dict(rtol=2.0 ** -6, atol=0.0)
+#: the collective forms on NCCL at world size 1 against mix_stacked:
+#: the same f32 arithmetic, so equal up to the last rounding
+DIST_MIX_TOL = {"float32": dict(rtol=1e-6, atol=1e-6),
+                "bfloat16": dict(rtol=2.0 ** -8, atol=1e-6)}
+#: grouped MoE dispatch: qwen3-moe-30b-a3b at full width, one MoE layer,
+#: 2 x 4096 tokens in bf16, 4 groups.  bf16 outputs of products summed in
+#: other orders (another capacity, per-expert products in the plain
+#: version, its f32 combine): two bf16 ulps relative, plus 2^-6 of the
+#: largest magnitude for elements that cancel.
+DIST_MOE = dict(arch="qwen3-moe-30b-a3b", batch=2, seq=4096, groups=4)
+DIST_MOE_TOL = dict(rtol=2.0 ** -6, atol_of_max=2.0 ** -6)
+
+
+def dist_trainer(dev, group, **kw):
+    """A Trainer of the distributed phase's settings (``kw`` overrides
+    TrainConfig fields)."""
+    from repro_torch.configs import registry as REG
+    from repro_torch.training.train_step import TrainConfig
+    from repro_torch.training.trainer import Trainer
+
+    cfg = REG.get_config(LLM_ARCH).replace(n_layers=DIST["n_layers"])
+    tc = TrainConfig(**{"memory_mode": "expsum", "K": DIST["K"],
+                        "use_kernel": True, "grad_clip": DIST["grad_clip"],
+                        **kw})
+    return Trainer(cfg, tc, n_agents=DIST["agents"], device=dev,
+                   group=group, log_every=10 ** 9)
+
+
+def dist_run(tr, steps: int) -> tuple:
+    """``tr`` over ``steps`` steps of the seed-0 token stream: the final
+    state, every agent's loss per step, the pre-clip norm per step, the
+    host ms per step (each step ends in a device sync) and, per step and
+    per agent of this process, the f32 norm of each parameter leaf and of
+    each leaf's exp-sum accumulators (the clipped gradients' memory)."""
+    import torch
+    from repro_torch import tree as TR
+    from repro_torch.data.synthetic import TokenPipeline
+
+    losses, norms, ms, acc_norms = [], [], [], []
+    inner = tr.step_fn
+
+    def step(state, batch):
+        t0 = time.perf_counter()
+        state, met = inner(state, batch)
+        if tr.device.type == "cuda":
+            torch.cuda.synchronize(tr.device)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(met["agent_loss"].float().cpu().tolist())
+        norms.append(float(met["grad_norm"]))
+        accs = TR.leaves(state.opt_state["acc"])         # (K, A_local, ...)
+        params = TR.leaves(state.params)                 # (A_local, ...)
+        acc_norms.append(torch.stack([torch.stack(
+            [torch.linalg.vector_norm(a[:, i].float()) for a in accs]
+            + [torch.linalg.vector_norm(p[i].float()) for p in params])
+            for i in range(params[0].shape[0])]).cpu().tolist())
+        return state, met
+
+    tr.step_fn = step
+    data = TokenPipeline(vocab=tr.cfg.vocab, seq_len=DIST["seq"],
+                         batch_per_agent=DIST["batch_per_agent"],
+                         n_agents=DIST["agents"], seed=0)
+    state = tr.run(tr.init(seed=0), iter(data), steps)
+    return state, losses, norms, ms, acc_norms
+
+
+def dist_held(losses, acc_norms, ref_losses, ref_acc_norms) -> tuple:
+    """(within the limits, the largest loss and state-norm differences):
+    every agent's loss per step, and this rank's agent's accumulator norms
+    per step and leaf."""
+    ok_l, err_l = close_np(losses, ref_losses, DIST_LOSS_TOL)
+    ok_s, err_s = close_np(acc_norms, ref_acc_norms, DIST_STATE_TOL)
+    return ok_l and ok_s, err_l, err_s
+
+
+def ulp_excess(a, b) -> tuple:
+    """(the largest |a - b| in bf16 ulps of |b| (2^-7 |b|), the share of
+    elements that differ) of two tensors."""
+    a, b = a.float(), b.float()
+    d = (a - b).abs()
+    ulps = d / (b.abs() * 2.0 ** -7).clamp(min=1e-30)
+    return float(ulps.max()), float((d > 0).float().mean())
+
+
+def _consensus_skipped_on_rank1(real):
+    """A planted fault: rank 1 takes part in the all-reduce and keeps its
+    own parameters."""
+    import torch.distributed as dist
+
+    def mix(x, group=None, n_agents=None):
+        out = real(x, group, n_agents)
+        return x if dist.get_rank() == 1 else out
+    return mix
+
+
+def _unreduced_norm(tree, group=None):
+    """A planted fault: the clip norm of this rank's agents only."""
+    import torch
+    from repro_torch.obs import metrics as obs_metrics
+    return torch.sqrt(obs_metrics.tree_sq_sum(tree))
+
+
+def _dist_rank(rank: int, world: int, tmp: str, device: str) -> None:
+    """One of the ranks that share the card over gloo: the sharded run
+    (counted, timed), held against the stacked run's record in ``tmp``,
+    then the two planted faults; results to ``tmp/rank<r>.json``."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import tree as TR
+    from repro_torch.core import consensus as C
+    from repro_torch.device import set_full_precision
+    from repro_torch.distributed import comm
+    from repro_torch.kernels import frodo_update as KU
+    from repro_torch.kernels import ops
+    from repro_torch.training import train_step as TS
+
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.set_device(dev)
+    set_full_precision()
+    t_start = time.perf_counter()
+    group = dist.group.WORLD
+    # warm up (the first step of a process loads its kernels and gloo its
+    # buffers) while the main process runs the one-process references
+    dist_run(dist_trainer(dev, group), 1)
+    torch.cuda.empty_cache()
+    warm_s = time.perf_counter() - t_start
+    while not os.path.exists(os.path.join(tmp, "ref_ready")):
+        time.sleep(0.05)
+    wait_s = time.perf_counter() - t_start - warm_s
+    ref = torch.load(os.path.join(tmp, f"ref{rank}.pt"))
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    dist.barrier()
+    KU.reset_launches()
+    comm.reset_counts()
+    with comm.timed():
+        state, losses, norms, ms, acc_norms = dist_run(
+            dist_trainer(dev, group), DIST["steps"])
+    launches = dict(ops.LAUNCHES)
+    counts = {k: dict(v) for k, v in comm.COUNTS.items()}
+    peak = torch.cuda.max_memory_allocated(dev) if on_card else 0
+    held, loss_err, state_err = dist_held(
+        losses, [a[0] for a in acc_norms], ref["losses"],
+        [a[rank] for a in ref["acc_norms"]])
+    worst_ulps, share = 0.0, 0.0
+    flat = TR.leaves(state.params)
+    for got, want in zip(flat, ref["params"]):
+        u, sh = ulp_excess(got[0], want.to(dev))
+        worst_ulps, share = max(worst_ulps, u), max(share, sh)
+    n_el = sum(t.numel() for t in flat)
+    del state, flat
+    torch.cuda.empty_cache()
+    planted = {}
+    real_mix, real_norm = C.mix_uniform_constrained, TS._global_norm
+    n = DIST["planted_steps"]
+    for name in ("consensus_skipped_on_rank1", "clip_norm_unreduced"):
+        try:
+            if name == "consensus_skipped_on_rank1":
+                C.mix_uniform_constrained = _consensus_skipped_on_rank1(
+                    real_mix)
+            else:
+                TS._global_norm = _unreduced_norm
+            _, p_losses, _, _, p_acc = dist_run(dist_trainer(dev, group), n)
+        finally:
+            C.mix_uniform_constrained, TS._global_norm = real_mix, real_norm
+        ok, err_l, err_s = dist_held(
+            p_losses, [a[0] for a in p_acc], ref["losses"][:n],
+            [a[rank] for a in ref["acc_norms"][:n]])
+        planted[name] = {"passes_the_check": ok, "max_abs_loss_diff": err_l,
+                         "max_abs_state_norm_diff": err_s}
+        torch.cuda.empty_cache()
+    res = {"rank": rank, "losses": losses, "grad_norm": norms,
+           "ms_per_step": ms, "median_ms_per_step": statistics.median(
+               ms[1:]),
+           "held": held, "max_abs_loss_diff": loss_err,
+           "max_abs_state_norm_diff": state_err,
+           "param_max_ulps": worst_ulps, "param_share_differing": share,
+           "param_elements": n_el, "launches": launches,
+           "collectives": counts, "peak_bytes": peak,
+           "planted": planted, "warm_up_s": warm_s, "wait_s": wait_s,
+           "seconds": time.perf_counter() - t_start}
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def plain_grouped_moe(params, x, cfg):
+    """The plain version of grouped MoE dispatch, independent of
+    ``moe.py``'s sort-and-scatter: per group, each assignment's place in
+    its expert from a running count of one-hot rows, the kept tokens of
+    each expert through its products one expert at a time, the outputs
+    added in f32.  Routing is ``moe.route``'s."""
+    import torch
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as MOE
+
+    m = cfg.moe
+    B, S, d = x.shape
+    N, E, k, G = B * S, m.n_experts, m.top_k, m.dispatch_groups
+    n = N // G
+    C = MOE._capacity(n, m)
+    xt = x.reshape(N, d)
+    _, _, top_w, top_e = MOE.route(params, xt, cfg)
+    ex = params["experts"]
+    act = L.activation(cfg.activation)
+    out = torch.zeros((N, d), dtype=torch.float32, device=x.device)
+    for g in range(G):
+        e = top_e[g * n:(g + 1) * n].reshape(-1)
+        w = top_w[g * n:(g + 1) * n].reshape(-1)
+        onehot = torch.nn.functional.one_hot(e, E)
+        pos = (torch.cumsum(onehot, 0) - 1).gather(1, e[:, None])[:, 0]
+        tok = torch.arange(n, device=x.device).repeat_interleave(k) + g * n
+        keep = pos < C
+        for j in range(E):
+            sel = (e == j) & keep
+            xe = xt[tok[sel]]
+            y = (act(xe @ ex["gate"][j]) * (xe @ ex["up"][j])) @ ex["down"][j]
+            out.index_add_(0, tok[sel], y.float() * w[sel][:, None])
+    return out.to(x.dtype).reshape(B, S, d)
+
+
+def moe_close(a, b) -> tuple:
+    a, b = a.float(), b.float()
+    err = (a - b).abs()
+    lim = DIST_MOE_TOL["atol_of_max"] * b.abs().max() \
+        + DIST_MOE_TOL["rtol"] * b.abs()
+    return bool((err <= lim).all()), float(err.max())
+
+
+def dist_moe_groups(dev) -> dict:
+    """Grouped dispatch at qwen3-moe's full width: 4 groups at an ample
+    capacity equal one group; at the config's capacity, the plain
+    per-group version."""
+    import torch
+    from repro_torch.configs import registry as REG
+    from repro_torch.models import moe as MOE
+
+    cfg = REG.get_config(DIST_MOE["arch"])
+    m = cfg.moe
+
+    def with_moe(**kw):
+        return cfg.replace(moe=m.__class__(**{**m.__dict__, **kw}))
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    p = MOE.moe_init(gen, cfg, (), dev)
+    x = torch.randn((DIST_MOE["batch"], DIST_MOE["seq"], cfg.d_model),
+                    generator=gen, device=dev).to(torch.bfloat16)
+    G = DIST_MOE["groups"]
+    ample = m.n_experts / m.top_k
+    with torch.no_grad():
+        one, _ = MOE.moe_mlp(p, x, with_moe(capacity_factor=ample))
+        grouped, _ = MOE.moe_mlp(p, x, with_moe(capacity_factor=ample,
+                                                 dispatch_groups=G))
+        ok_ample, err_ample = moe_close(grouped, one)
+        cfg_g = with_moe(dispatch_groups=G)
+        got, aux = MOE.moe_mlp(p, x, cfg_g)
+        want = plain_grouped_moe(p, x, cfg_g)
+        ok_cap, err_cap = moe_close(got, want)
+        at_one, _ = MOE.moe_mlp(p, x, cfg)
+    check(ok_ample, f"grouped MoE at ample capacity vs one group: {err_ample}")
+    check(ok_cap, f"grouped MoE vs the plain per-group version: {err_cap}")
+    check(bool(torch.isfinite(got).all()) and bool(torch.isfinite(aux)),
+          "grouped MoE output not finite")
+    return {"arch": DIST_MOE["arch"], "tokens": [DIST_MOE["batch"],
+                                                  DIST_MOE["seq"]],
+            "groups": G, "capacity_per_group": MOE._capacity(
+                DIST_MOE["batch"] * DIST_MOE["seq"] // G, m),
+            "capacity_one_group": MOE._capacity(
+                DIST_MOE["batch"] * DIST_MOE["seq"], m),
+            "ample_vs_one_group_max_abs_err": err_ample,
+            "vs_plain_per_group_max_abs_err": err_cap,
+            "max_abs_diff_vs_one_group_at_config_capacity": float(
+                (got.float() - at_one.float()).abs().max()),
+            "tol": DIST_MOE_TOL}
+
+
+def dist_forms_world1(dev) -> dict:
+    """The collective forms on the world-1 group on card tensors against
+    ``mix_stacked``; whether ring_mix's send to self ran."""
+    import numpy as np
+    import torch
+    from repro_torch.core import consensus as C
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    W = np.array([[0.7, 0.3], [0.4, 0.6]])
+    out = {}
+    for dname, dt in (("float32", torch.float32),
+                      ("bfloat16", torch.bfloat16)):
+        two = {"w": torch.randn((2, 1024, 1024), generator=gen,
+                                device=dev).to(dt),
+               "b": torch.randn((2, 4096), generator=gen, device=dev).to(dt)}
+        one = {k: v[:1].clone() for k, v in two.items()}
+        pairs = {
+            "pmean_mix": (C.pmean_mix(one), C.mix_stacked(one, np.ones((1,
+                                                                        1)))),
+            "mix_uniform_constrained": (C.mix_uniform_constrained(two),
+                                        C.mix_stacked(two, np.full((2, 2),
+                                                                   0.5))),
+            "general_mix": (C.general_mix(two, W), C.mix_stacked(two, W))}
+        try:
+            pairs["ring_mix"] = (C.ring_mix(one), C.mix_stacked(
+                one, np.ones((1, 1))))
+            out["ring_mix_send_to_self"] = "ran"
+        except RuntimeError as e:
+            out["ring_mix_send_to_self"] = f"refused: {str(e)[:200]}"
+        errs = {}
+        for form, (got, want) in pairs.items():
+            worst = 0.0
+            for k in got:
+                ok, err = close_np(got[k].float().cpu().numpy(),
+                                   want[k].float().cpu().numpy(),
+                                   DIST_MIX_TOL[dname])
+                check(ok, f"{form} ({dname}) on the world-1 group vs "
+                          f"mix_stacked: {err}")
+                worst = max(worst, err)
+            errs[form] = worst
+        out[dname] = errs
+    return out
+
+
+def distributed_phase(dev) -> dict:
+    """The distributed layer on the card: the collective forms and the
+    agent-sharded step on NCCL at world size 1 (bit-equal to the stacked
+    step), two ranks sharing the card over gloo against the stacked run
+    (planted faults must fail), and grouped MoE dispatch."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch import tree as TR
+    from repro_torch.distributed import comm
+    from repro_torch.kernels import frodo_update as KU
+    from repro_torch.kernels import ops
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    launches = {}
+    torch.cuda.empty_cache()
+    # the two ranks start (and warm up) while this process runs the
+    # one-process references; they wait for ref_ready
+    ctx = comm.spawn(_dist_rank, DIST["ranks"], tmp, str(dev),
+                     backend="gloo", store_dir=tmp, join=False)
+    try:
+        # ---- one process: the stacked run, then NCCL at world size 1
+        KU.reset_launches()
+        ref_state, ref_losses, ref_norms, ref_ms, ref_acc = dist_run(
+            dist_trainer(dev, None), DIST["steps"])
+        launches["distributed_stacked"] = dict(ops.LAUNCHES)
+        clip = DIST["grad_clip"] * DIST["agents"] ** 0.5
+        check(all(v > clip for v in ref_norms),
+              f"the clip does not bind at every step: {ref_norms} vs {clip}")
+        check(bool(np.isfinite(ref_losses).all()),
+              f"stacked losses not finite: {ref_losses}")
+        dist.init_process_group(
+            DIST_BACKEND_1, store=dist.FileStore(os.path.join(tmp, "w1"), 1),
+            rank=0, world_size=1)
+        try:
+            backend = dist.get_backend()
+            forms = dist_forms_world1(dev)
+            KU.reset_launches()
+            w1_state, w1_losses, _, w1_ms, w1_acc = dist_run(
+                dist_trainer(dev, dist.group.WORLD), DIST["steps"])
+            launches["distributed_world1"] = dict(ops.LAUNCHES)
+        finally:
+            dist.destroy_process_group()
+        check(w1_losses == ref_losses and w1_acc == ref_acc,
+              f"world-1 {backend} losses or state differ from the stacked "
+              f"run's: {w1_losses} vs {ref_losses}")
+        check(all(torch.equal(a, b) for a, b in zip(
+            TR.leaves(w1_state.params), TR.leaves(ref_state.params))),
+            f"world-1 {backend} parameters differ from the stacked run's")
+        del w1_state
+        flat = TR.leaves(ref_state.params)
+        for r in range(DIST["ranks"]):
+            torch.save({"losses": ref_losses, "acc_norms": ref_acc,
+                        "params": [t[r].cpu() for t in flat]},
+                       os.path.join(tmp, f"ref{r}.pt"))
+        n_leaves = len(flat)
+        del ref_state, flat
+        torch.cuda.empty_cache()
+        # grouped MoE dispatch, while the ranks may still warm up (it runs
+        # before they are let go, so it perturbs none of their timings)
+        moe = dist_moe_groups(dev)
+        torch.cuda.empty_cache()
+        # ---- two ranks sharing the card over gloo
+        t0 = time.perf_counter()
+        open(os.path.join(tmp, "ref_ready"), "w").close()
+        while not ctx.join():
+            pass
+        ranks_s = time.perf_counter() - t0
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.terminate()
+            proc.join()
+    ranks = []
+    for r in range(DIST["ranks"]):
+        with open(os.path.join(tmp, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    for r in ranks:
+        check(r["held"], f"rank {r['rank']}: losses or state vs the stacked "
+                         f"run: {r['max_abs_loss_diff']}, "
+                         f"{r['max_abs_state_norm_diff']}")
+        check(r["param_max_ulps"] <= DIST_ULPS,
+              f"rank {r['rank']}: parameters {r['param_max_ulps']} bf16 "
+              f"ulps from the stacked run's")
+        check(r["launches"] == {"frodo_exact_update": 0,
+                                "frodo_expsum_update": n_leaves
+                                * DIST["steps"]},
+              f"rank {r['rank']}: launches {r['launches']}")
+    for name in ranks[0]["planted"]:        # a fault shows on some rank
+        check(not all(r["planted"][name]["passes_the_check"] for r in ranks),
+              f"planted {name} passed the check on every rank")
+    launches["distributed_2ranks"] = {
+        k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]}
+    steps = DIST["steps"]
+    emit("distributed", nvidia_smi=nvidia_smi(), arch=LLM_ARCH,
+         n_layers=DIST["n_layers"], seq=DIST["seq"], agents=DIST["agents"],
+         batch_per_agent=DIST["batch_per_agent"], K=DIST["K"],
+         acc_dtype="float32", grad_clip=DIST["grad_clip"], steps=steps,
+         reduced=DIST_REDUCED,
+         world1={"backend": backend, "bit_equal_to_stacked": True,
+                 "forms_vs_mix_stacked_max_abs_err": forms,
+                 "median_ms_per_step": statistics.median(w1_ms[1:]),
+                 "ms_per_step": w1_ms},
+         stacked={"median_ms_per_step": statistics.median(ref_ms[1:]),
+                  "ms_per_step": ref_ms,
+                  "losses": ref_losses, "grad_norm": ref_norms},
+         ranks={"backend": "gloo", "world": DIST["ranks"],
+                "seconds_after_the_references": ranks_s,
+                "per_rank": [{
+                    "rank": r["rank"],
+                    "median_ms_per_step": r["median_ms_per_step"],
+                    "ms_per_step": r["ms_per_step"],
+                    "all_reduce_ms_per_step":
+                        r["collectives"]["all_reduce"]["ms"] / steps,
+                    "all_reduce_bytes_per_step":
+                        r["collectives"]["all_reduce"]["bytes"] / steps,
+                    "collectives": r["collectives"],
+                    "peak_bytes": r["peak_bytes"],
+                    "expsum_launches": r["launches"]["frodo_expsum_update"],
+                    "max_abs_loss_diff": r["max_abs_loss_diff"],
+                    "max_abs_state_norm_diff": r["max_abs_state_norm_diff"],
+                    "param_max_ulps": r["param_max_ulps"],
+                    "param_share_differing": r["param_share_differing"],
+                    "planted": r["planted"], "warm_up_s": r["warm_up_s"],
+                    "wait_s": r["wait_s"], "seconds": r["seconds"]}
+                    for r in ranks]},
+         tol={"loss": DIST_LOSS_TOL, "param_bf16_ulps": DIST_ULPS,
+              "state_norms": DIST_STATE_TOL, "forms": DIST_MIX_TOL},
+         moe_groups=moe, seconds=time.perf_counter() - t_phase)
+    return {"launches": launches}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2455,13 +2982,15 @@ def main() -> int:
     regress_phase(dev, tmp)
     launches_abl = ablations_phase(dev, tmp)
     harness_phase(dev, dryrun_dir, tmp)
+    dist_launches = distributed_phase(dev)["launches"]
     per_path = {name: {"exp2": launches_exp2[name],
                        "exp1_point": launches_exp1[name],
                        "exp3": launches_exp3[name],
                        **{p: c[name] for p, c in llm["launches"].items()},
                        **{p: c[name] for p, c in serve["launches"].items()},
                        "dryrun_probe": dry["launches"][name],
-                       "ablations": launches_abl[name]}
+                       "ablations": launches_abl[name],
+                       **{p: c[name] for p, c in dist_launches.items()}}
                 for name in ("frodo_exact_update", "frodo_expsum_update")}
 
     # ----------------------------------------------------------- timing

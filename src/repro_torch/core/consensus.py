@@ -7,17 +7,24 @@ W == 11^T/A, takes a mean over the agent dim instead.  ``mix_time_varying``
 applies one step of a fault-masked sequence of W; ``mix_hierarchical`` the
 two-level (pod x intra-pod) Kronecker mixing.
 
-The collective (shard_map) forms of the JAX package's
-``repro.core.consensus`` are not ported yet.
+The collective forms (the JAX package's ``shard_map`` ones) run on
+``torch.distributed``: each takes the rank's local agent slice
+``(A_local, ...)`` of every leaf and a group (``distributed.comm``: a
+``ProcessGroup``, ``None`` for the default one, or a ``(DeviceMesh, dim
+name)`` pair).  ``pmean_mix``/``pmean_shardmap`` and
+``mix_uniform_constrained`` all-reduce an f32 sum; ``ring_mix`` swaps
+blocks with the neighbouring ranks (``batch_isend_irecv``);
+``general_mix`` all-gathers the agents and applies the rank's rows of W.
 """
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Optional
 
 import numpy as np
 import torch
 
 from repro_torch import tree as TR
+from repro_torch.distributed import comm
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs.timing import trace_scope
 
@@ -109,4 +116,86 @@ def mix_hierarchical(x: Tree, W_intra: np.ndarray, W_pod: np.ndarray,
         return u.reshape(v.shape).to(v.dtype)
 
     with trace_scope("consensus.mix_hierarchical"):
+        return TR.tree_map(leaf, x)
+
+
+# -------------------------------------------------------------- collective
+# One agent per rank makes each of these the stacked form of the same W.
+
+def _pmean(x: Tree, group) -> Tree:
+    w = comm.world_size(group)
+
+    def leaf(v):
+        s = comm.all_reduce_sum(v.float().clone(), group)
+        return (s / w).to(v.dtype)
+    return TR.tree_map(leaf, x)
+
+
+def pmean_mix(x: Tree, group=None) -> Tree:
+    """Uniform complete-graph consensus: the mean over the group's ranks
+    of their blocks (an all-reduce of the f32 sum, divided by the rank
+    count and cast back), the JAX form's ``pmean`` over the agent axes."""
+    with trace_scope("consensus.pmean_mix"):
+        return _pmean(x, group)
+
+
+def pmean_shardmap(x: Tree, group=None) -> Tree:
+    """The same all-reduce mean, in the JAX package called from outside
+    ``shard_map`` on a stacked tree sharded over the agent axes: 2 x the
+    local bytes per rank, against A x for an agent-dim all-gather."""
+    with trace_scope("consensus.pmean_shardmap"):
+        return _pmean(x, group)
+
+
+def mix_uniform_constrained(x: Tree, group=None,
+                            n_agents: Optional[int] = None) -> Tree:
+    """Uniform complete-graph consensus of an agent-sharded stack: each
+    rank sums its agents in f32, the sums are all-reduced, divided by the
+    global agent count ``n_agents`` (A_local x ranks unless given) and
+    broadcast back into the local stack."""
+    A = n_agents or TR.leaves(x)[0].shape[0] * comm.world_size(group)
+
+    def leaf(v):
+        s = comm.all_reduce_sum(torch.sum(v.float(), dim=0), group)
+        return (s / A).to(v.dtype).expand_as(v).contiguous()
+
+    with trace_scope("consensus.mix_uniform_constrained"):
+        return TR.tree_map(leaf, x)
+
+
+def ring_mix(x: Tree, group=None, w_self: float = 0.5,
+             bidirectional: bool = True) -> Tree:
+    """Ring consensus over the group's ranks by neighbour exchange: O(n)
+    per rank per neighbour, no all-gather.  ``w_self`` plus the neighbour
+    weights sum to 1 (row-stochastic)."""
+    n_nbrs = 2 if bidirectional else 1
+    w_nbr = (1.0 - w_self) / n_nbrs
+
+    def leaf(v):
+        fwd = comm.shift(v, 1, group)             # rank r-1's block
+        acc = w_self * v.float() + w_nbr * fwd.float()
+        if bidirectional:
+            acc = acc + w_nbr * comm.shift(v, -1, group).float()
+        return acc.to(v.dtype)
+
+    with trace_scope("consensus.ring_mix"):
+        return TR.tree_map(leaf, x)
+
+
+def general_mix(x: Tree, W, group=None) -> Tree:
+    """Arbitrary row-stochastic (A, A) W over an agent-sharded stack:
+    all-gather every rank's agents, then apply this rank's rows of W in
+    f32.  O(A n) per rank: the form for arbitrary digraphs."""
+    r = comm.rank(group)
+    leaves = TR.leaves(x)
+    A_loc = leaves[0].shape[0]
+    Wt = torch.as_tensor(W, dtype=torch.float32, device=leaves[0].device)
+    rows = Wt[r * A_loc:(r + 1) * A_loc]
+
+    def leaf(v):
+        allv = comm.all_gather(v, group)
+        allv = allv.reshape((-1,) + tuple(v.shape[1:]))
+        return torch.einsum("ab,b...->a...", rows, allv.float()).to(v.dtype)
+
+    with trace_scope("consensus.general_mix"):
         return TR.tree_map(leaf, x)

@@ -1,0 +1,173 @@
+"""The collectives the distributed consensus and the agent-sharded step use,
+on ``torch.distributed``, with a count of calls, bytes and (when asked)
+milliseconds per op.
+
+Backends are the caller's choice: ``nccl`` where each rank has its own
+card, ``gloo`` for CPU ranks and for ranks that share one card.  Gloo runs
+``all_reduce`` on CUDA tensors itself (through host memory inside gloo);
+it has no ``all_gather`` and no point-to-point ops for CUDA tensors, so on
+a gloo group those two stage a CUDA tensor through host memory here,
+explicitly (``staged`` in the counts).  No op falls back to another
+backend.
+
+A ``group`` argument is a ``ProcessGroup``, ``None`` (the default group)
+or a ``(DeviceMesh, dim name)`` pair, which names the mesh dimension's
+group.
+"""
+from __future__ import annotations
+
+import contextlib
+import os
+import tempfile
+import time
+from typing import Any, Callable, Dict, Optional
+
+import torch
+import torch.distributed as dist
+
+OPS = ("all_reduce", "all_gather", "send_recv")
+
+#: per op: calls, bytes (each rank's input), ms (host clock, only while
+#: ``timed()`` is active: a device sync before and after each call) and
+#: the calls staged through host memory
+COUNTS: Dict[str, Dict[str, float]] = {}
+_timing = [False]
+
+
+def reset_counts() -> None:
+    COUNTS.clear()
+    COUNTS.update({op: {"calls": 0, "bytes": 0, "ms": 0.0, "staged": 0}
+                   for op in OPS})
+
+
+reset_counts()
+
+
+@contextlib.contextmanager
+def timed():
+    """Time every collective on the host clock, between device syncs."""
+    prev, _timing[0] = _timing[0], True
+    try:
+        yield
+    finally:
+        _timing[0] = prev
+
+
+@contextlib.contextmanager
+def _counted(op: str, t: torch.Tensor, staged: bool):
+    c = COUNTS[op]
+    c["calls"] += 1
+    c["bytes"] += t.numel() * t.element_size()
+    c["staged"] += int(staged)
+    if not _timing[0]:
+        yield
+        return
+    sync = t.is_cuda
+    if sync:
+        torch.cuda.synchronize(t.device)
+    t0 = time.perf_counter()
+    yield
+    if sync:
+        torch.cuda.synchronize(t.device)
+    c["ms"] += (time.perf_counter() - t0) * 1e3
+
+
+def resolve_group(group: Any):
+    """A ``ProcessGroup`` for ``group`` (see the module docstring)."""
+    if isinstance(group, tuple):
+        mesh, name = group
+        return mesh.get_group(name)
+    return group if group is not None else dist.group.WORLD
+
+
+def world_size(group: Any) -> int:
+    return dist.get_world_size(resolve_group(group))
+
+
+def rank(group: Any) -> int:
+    return dist.get_rank(resolve_group(group))
+
+
+def _staged(group, t: torch.Tensor) -> bool:
+    return t.is_cuda and dist.get_backend(group) == "gloo"
+
+
+def all_reduce_sum(t: torch.Tensor, group: Any = None) -> torch.Tensor:
+    """Sum ``t`` over the group's ranks, in place; returns it."""
+    group = resolve_group(group)
+    with _counted("all_reduce", t, False):
+        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+    return t
+
+
+def all_gather(t: torch.Tensor, group: Any = None) -> torch.Tensor:
+    """Every rank's ``t``, stacked in rank order: ``(world,) + t.shape``."""
+    group = resolve_group(group)
+    staged = _staged(group, t)
+    with _counted("all_gather", t, staged):
+        # gloo has no all_gather for CUDA tensors: through host memory
+        src = t.detach().cpu() if staged else t.detach().contiguous()
+        out = src.new_empty((dist.get_world_size(group),) + tuple(t.shape))
+        dist.all_gather(list(out.unbind(0)), src, group=group)
+    return out.to(t.device) if staged else out
+
+
+def shift(t: torch.Tensor, k: int, group: Any = None) -> torch.Tensor:
+    """Rank ``(r - k) % world``'s ``t``: every rank sends its own to rank
+    ``(r + k) % world`` (one ``batch_isend_irecv``; the counterpart of a
+    ``ppermute`` by k)."""
+    group = resolve_group(group)
+    w, r = dist.get_world_size(group), dist.get_rank(group)
+    staged = _staged(group, t)
+    with _counted("send_recv", t, staged):
+        # gloo has no send/recv for CUDA tensors: through host memory
+        src = t.detach().cpu() if staged else t.detach().contiguous()
+        out = torch.empty_like(src)
+        reqs = dist.batch_isend_irecv([
+            dist.P2POp(dist.isend, src,
+                       dist.get_global_rank(group, (r + k) % w), group),
+            dist.P2POp(dist.irecv, out,
+                       dist.get_global_rank(group, (r - k) % w), group)])
+        for req in reqs:
+            req.wait()
+    return out.to(t.device) if staged else out
+
+
+# ------------------------------------------------------------------ ranks
+
+def _rank_entry(rank: int, world: int, store_path: str, backend: str,
+                threads: int, fn: Callable, args: tuple) -> None:
+    torch.set_num_threads(threads)
+    dist.init_process_group(backend, store=dist.FileStore(store_path, world),
+                            rank=rank, world_size=world)
+    try:
+        fn(rank, world, *args)
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn(fn: Callable, world: int, *args, backend: str = "gloo",
+          store_dir: Optional[str] = None, threads: Optional[int] = None,
+          join: bool = True):
+    """Run ``fn(rank, world, *args)`` in ``world`` spawned processes, each
+    a rank of a default ``backend`` group on a ``FileStore`` in
+    ``store_dir`` (a temp dir unless given), with ``threads`` intra-op
+    threads (this process's split over the ranks unless given).  ``fn`` and
+    ``args`` are pickled: ``fn`` must be importable by name.  Raises if a
+    rank raises.  With ``join=False`` it returns at once with the
+    processes' ``ProcessContext`` (``while not ctx.join(): pass`` waits
+    for them); ``store_dir`` is then required."""
+    import torch.multiprocessing as mp
+
+    threads = threads or max(1, torch.get_num_threads() // world)
+    if not join:
+        if store_dir is None:
+            raise ValueError("spawn(join=False) needs a store_dir")
+        return mp.spawn(_rank_entry, args=(
+            world, os.path.join(store_dir, "store"), backend, threads, fn,
+            args), nprocs=world, join=False)
+    with tempfile.TemporaryDirectory(prefix="repro_torch_ranks_",
+                                     dir=store_dir) as d:
+        mp.spawn(_rank_entry, args=(world, os.path.join(d, "store"),
+                                    backend, threads, fn, args),
+                 nprocs=world, join=True)

@@ -15,8 +15,11 @@ closed-form counts of ``repro_torch.utils.flops``, and so are the bytes
 analysis to read, where the JAX roofline takes the larger of the two.
 Memory per card is the dry-run's argument bytes (parameters, gradients,
 optimizer state, batch or cache), or the probe's extrapolated peak where
-that is larger.  The link term waits for the distributed slice (the JAX
-dry-run's collective parse has no one-card counterpart).
+that is larger.  The dry-run's production-mesh records (spec trees and
+per-device bytes, no FLOPs) are skipped.  The link term waits for the
+models to run tensor-parallel: the JAX dry-run reads it from the
+collectives of XLA's partitioned HLO, and the port has no tensor-parallel
+model execution to count them from yet.
 
     PYTHONPATH=src python -m repro_torch.experiments.roofline \\
         --dir experiments/dryrun_torch --out experiments/roofline_torch.md
@@ -35,7 +38,8 @@ HBM_PER_CARD = 80e9          # bytes
 CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
 CHIPS = {"1xH100": 1}
 LINK_NOTE = ("link term 0: a one-card record moves nothing over NVLink; "
-             "the collective record comes with the distributed slice")
+             "the collective record comes with tensor-parallel model "
+             "execution")
 
 
 def load_records(dirpath: str = "experiments/dryrun_torch") -> List[Dict]:
@@ -55,7 +59,7 @@ def mem_per_card_bytes(rec: Dict) -> float:
 
 
 def roofline_terms(rec: Dict) -> Optional[Dict]:
-    if rec.get("status") != "ok":
+    if rec.get("status") != "ok" or rec["mesh"] not in CHIPS:
         return None
     chips = CHIPS[rec["mesh"]]
     ana = rec.get("analytic", {})

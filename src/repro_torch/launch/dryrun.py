@@ -29,10 +29,21 @@ counterpart of lowering without running, so here:
   L to ``registry.scan_trip_count(cfg)``.  On the CPU a probe records the
   host ms instead, and no device number.
 
-One card, no mesh: the JAX flags ``--multi-pod`` and ``--both-meshes`` and
-the record's collective schedule (the partitioned HLO's collectives) wait
-for the distributed slice.  Records are JSON files in ``--out``
-(``experiments/dryrun_torch``), read by ``repro_torch.experiments.roofline``.
+``--multi-pod`` (the 2x16x16 ("pod", "data", "model") mesh) and
+``--both-meshes`` (16x16 ("data", "model") and 2x16x16) write the
+production-mesh records instead of the one-card one, as the JAX flags
+choose meshes: each mesh is built with ``launch.mesh.make_production_mesh``
+on a ``fake`` process group of its size in this one process, and each
+record holds ``n_agents`` (``train_step.n_agents_for``), the ``rules``
+(``build_rules`` for train, ``serve_rules`` for prefill and decode; each
+value as its ``str``) and ``memory``: the per-device argument bytes, each
+leaf's local shard under the sanitized specs of the JAX dry-run's
+``in_shardings`` (train state and batch; parameters and batch; parameters,
+cache and tokens), summed by part.  The collective schedule and the
+roofline's link term need the models run tensor-parallel (the JAX package
+reads them from XLA's partitioned HLO) and are not recorded.  Records are
+JSON files in ``--out`` (``experiments/dryrun_torch``); the one-card ones
+are read by ``repro_torch.experiments.roofline``.
 """
 from __future__ import annotations
 
@@ -50,6 +61,8 @@ from repro_torch.configs import registry as REG
 from repro_torch.configs.base import INPUT_SHAPES, InputShape, ModelConfig
 from repro_torch.data.synthetic import TokenPipeline, augment_modalities
 from repro_torch.device import Device, resolve_device, set_full_precision
+from repro_torch.distributed import sharding as SH
+from repro_torch.launch import mesh as ML
 from repro_torch.models import decode as D
 from repro_torch.models import transformer as T
 from repro_torch.training import train_step as TS
@@ -99,6 +112,103 @@ def argument_bytes(cfg: ModelConfig, shape: InputShape,
                "batch_bytes": tree_bytes(REG.input_specs(cfg, shape))}
     mem["argument_size_in_bytes"] = sum(mem.values())
     return mem
+
+
+# ------------------------------------------------- production-mesh records
+
+MESHES = {False: "16x16", True: "2x16x16"}
+
+
+def shard_bytes(tree, specs, mesh) -> int:
+    """Bytes of one device's shard of every tensor leaf of ``tree`` under
+    ``specs`` (sanitized: each named axis divides its dim)."""
+    sizes = SH.mesh_axis_sizes(mesh)
+    total = 0
+    for leaf, spec in zip(TR.leaves(tree), TR.leaves(specs)):
+        if not isinstance(leaf, torch.Tensor):
+            continue                       # a host integer (a step count)
+        n = leaf.element_size()
+        for dim, p in zip(leaf.shape, tuple(spec) + (None,) * leaf.dim()):
+            for a in (() if p is None else
+                      p if isinstance(p, tuple) else (p,)):
+                dim //= sizes[a]
+            n *= dim
+        total += n
+    return total
+
+
+def mesh_memory(cfg: ModelConfig, shape: InputShape, mesh, multi_pod: bool,
+                tc: TS.TrainConfig) -> Dict[str, Any]:
+    """``n_agents``, ``rules`` and the per-device argument bytes of one
+    (arch, shape) on a production mesh, by part."""
+    out: Dict[str, Any] = {}
+    if shape.kind == "train":
+        n_agents = TS.n_agents_for(cfg, mesh, multi_pod)
+        rules = TS.build_rules(cfg, multi_pod)
+        state = TS.abstract_train_state(cfg, tc, n_agents)
+        specs = TS.train_state_specs(state, cfg, rules, mesh)
+        batch = REG.input_specs(cfg, shape, n_agents)
+        out["n_agents"] = n_agents
+        mem = {"params_bytes": shard_bytes(state.params, specs.params, mesh),
+               "opt_state_bytes": shard_bytes(state.opt_state,
+                                              specs.opt_state, mesh)}
+        b_specs = TS.batch_specs(batch, rules, mesh)
+    else:
+        rules = TS.serve_rules(cfg, multi_pod, shape.global_batch, mesh)
+        params = FL.meta_params(cfg)
+        mem = {"params_bytes": shard_bytes(
+            params, TS.param_specs(params, rules, mesh, agent_stacked=False),
+            mesh)}
+        batch = REG.input_specs(cfg, shape)
+        b_specs = TS.batch_specs_serve(batch, rules, mesh)
+        if shape.kind == "decode":
+            window = REG.decode_window(cfg, shape)
+            cache = D.init_cache(cfg, shape.global_batch, shape.seq_len,
+                                 window, device="meta")
+            mem["cache_bytes"] = shard_bytes(
+                cache, TS.cache_specs(cache, rules, mesh), mesh)
+            out["window_override"] = window
+            b_specs = {"tokens": SH.P()}    # the JAX step's replicated token
+    mem["batch_bytes"] = shard_bytes(batch, b_specs, mesh)
+    mem["argument_size_in_bytes"] = sum(mem.values())
+    out["rules"] = {k: str(v) for k, v in rules.items()}
+    out["memory"] = mem
+    return out
+
+
+def run_mesh(archs: Sequence[str], shapes: Sequence[str], multi_pod: bool,
+             out_dir: Optional[str] = None,
+             tc: Optional[TS.TrainConfig] = None) -> list:
+    """The production-mesh records of every (arch, shape), on one mesh."""
+    tc = tc or TRAIN_CONFIG
+    mesh_name = MESHES[multi_pod]
+    recs = []
+    with ML.fake_world(512 if multi_pod else 256):
+        mesh = ML.make_production_mesh(multi_pod=multi_pod)
+        for arch in archs:
+            cfg = REG.get_config(arch)
+            for name in shapes:
+                shape = INPUT_SHAPES[name]
+                rec: Dict[str, Any] = {"arch": arch, "shape": name,
+                                       "mesh": mesh_name, "kind": shape.kind,
+                                       "devices": mesh.size()}
+                ok, reason = REG.shape_supported(cfg, shape)
+                if not ok:
+                    rec.update(status="skipped", reason=reason)
+                else:
+                    try:
+                        t0 = time.time()
+                        rec.update(mesh_memory(cfg, shape, mesh, multi_pod,
+                                               tc))
+                        rec["count_s"] = round(time.time() - t0, 3)
+                        rec["status"] = "ok"
+                    except Exception as e:  # noqa: BLE001 — keep sweeping
+                        rec["status"] = "error"
+                        rec["error"] = f"{type(e).__name__}: {e}"
+                        rec["traceback"] = traceback.format_exc()[-2000:]
+                _emit(rec, out_dir)
+                recs.append(rec)
+    return recs
 
 
 # ------------------------------------------------------------------- probes
@@ -246,7 +356,10 @@ def run_one(arch: str, shape: Union[str, InputShape],
 def _emit(rec: Dict[str, Any], out_dir: Optional[str]):
     line = (f"[{rec['status']:7s}] {rec['arch']:22s} {rec['shape']:12s} "
             f"{rec['mesh']:8s}")
-    if rec["status"] == "ok":
+    if rec["status"] == "ok" and "analytic" not in rec:
+        mem = rec["memory"]["argument_size_in_bytes"]
+        line += f" args/device={mem / 2 ** 30:.3f}GiB"
+    elif rec["status"] == "ok":
         mem = rec["memory"]["argument_size_in_bytes"]
         line += (f" exec_flops={rec['analytic']['exec_flops']:.3e}"
                  f" args={mem / 2 ** 30:.2f}GiB"
@@ -282,6 +395,12 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--probe", action="store_true",
                     help="also run steps at trip counts 2 and 3 on the "
                          "device and extrapolate peak memory and ms")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="records on the 2x16x16 production mesh instead "
+                         "of the one-card record")
+    ap.add_argument("--both-meshes", action="store_true",
+                    help="records on the 16x16 and 2x16x16 production "
+                         "meshes instead of the one-card record")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
     args = ap.parse_args(argv)
@@ -289,6 +408,11 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     archs = list(REG.ARCH_IDS) if args.all or not args.arch else [args.arch]
     shapes = (list(INPUT_SHAPES) if args.all or not args.shape
               else [args.shape])
+    if args.multi_pod or args.both_meshes:
+        recs = []
+        for mp in ([False, True] if args.both_meshes else [True]):
+            recs += run_mesh(archs, shapes, mp, args.out or None)
+        return 1 if any(r["status"] == "error" for r in recs) else 0
     n_bad = 0
     for arch in archs:
         for shape in shapes:

@@ -10,11 +10,20 @@ update goes through the hand-written kernels unless ``--no-use-kernel``.
         --steps 4 --seq 32 --batch-per-agent 1
 
 ``run_training`` is the importable entry point: same seed -> same data
-stream, same init, same trajectories.  The JAX launcher's
-``--force-devices`` (an XLA host-device flag) belongs to the distributed
-slice and is not ported.
+stream, same init, same trajectories.  Under an initialized default
+process group it splits the agents over the group's ranks; the result is
+the one-process run's.  Under ``torchrun`` (``WORLD_SIZE`` in the
+environment) ``main`` starts that group itself: ``nccl`` on the card, one
+card a rank (``LOCAL_RANK``), ``gloo`` with ``--device cpu``.
+``--force-devices N``, the counterpart of the JAX launcher's N forced host
+devices, spawns N gloo ranks on the CPU, each running ``run_training`` on
+its agents (N must divide ``--agents``):
+
+    PYTHONPATH=src python -m repro_torch.launch.train --smoke --steps 4 \\
+        --seq 32 --batch-per-agent 1 --agents 4 --force-devices 2
 """
 import argparse
+import os
 from typing import Callable, Optional
 
 
@@ -45,6 +54,8 @@ def run_training(arch: str = "h2o-danube-1.8b", smoke: bool = True,
     config's); ``init_fn(seed)`` (initial stacked parameters as a numpy
     tree, for example the JAX package's, instead of the port's own draw).
     """
+    import torch.distributed as dist
+
     from repro_torch import obs
     from repro_torch.configs import registry as REG
     from repro_torch.data.synthetic import TokenPipeline, augment_modalities
@@ -65,19 +76,21 @@ def run_training(arch: str = "h2o-danube-1.8b", smoke: bool = True,
                      consensus_interval=consensus_interval,
                      collect_metrics=collect)
     tokens_per_step = agents * batch_per_agent * seq
+    group = dist.group.WORLD if dist.is_initialized() else None
+    lead = group is None or dist.get_rank() == 0
     trainer = Trainer(cfg, tc, n_agents=agents,
                       ckpt_dir=ckpt_dir, log_every=5,
                       tokens_per_step=tokens_per_step,
                       profile_dir=profile_dir or None,
                       profile_start=profile_start,
-                      profile_stop=profile_stop, device=device)
+                      profile_stop=profile_stop, device=device, group=group)
     data = augment_modalities(
         iter(TokenPipeline(vocab=cfg.vocab, seq_len=seq,
                            batch_per_agent=batch_per_agent,
                            n_agents=agents, seed=seed)), cfg)
-    sink = obs.JsonlSink(metrics_out) if metrics_out else None
+    sink = obs.JsonlSink(metrics_out) if metrics_out and lead else None
     trainer.sink = sink
-    recorder = obs.SpanRecorder() if spans_out else None
+    recorder = obs.SpanRecorder() if spans_out and lead else None
     prev = obs.set_recorder(recorder) if recorder is not None else None
     try:
         # the state goes straight to run(): a reference kept here would
@@ -92,6 +105,36 @@ def run_training(arch: str = "h2o-danube-1.8b", smoke: bool = True,
         if sink is not None:
             sink.close()
     return trainer
+
+
+def _env_group(device) -> None:
+    """The default group of a ``torchrun`` launch (``env://``)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.device import resolve_device
+
+    if resolve_device(device).type == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+        dist.init_process_group("nccl")
+    else:
+        dist.init_process_group("gloo")
+
+
+def _rank_main(rank: int, world: int, kwargs: dict) -> None:
+    run_training(**kwargs)
+
+
+def run_forced(n_ranks: int, **kwargs) -> None:
+    """``run_training(**kwargs)`` on ``n_ranks`` gloo ranks on the CPU
+    (spawned processes, a ``FileStore`` in a temp dir)."""
+    from repro_torch.distributed import comm
+
+    agents = kwargs.get("agents", 2)
+    if n_ranks < 1 or agents % n_ranks:
+        raise ValueError(f"--force-devices {n_ranks} must divide --agents "
+                         f"{agents}")
+    comm.spawn(_rank_main, n_ranks, dict(kwargs, device="cpu"))
 
 
 def main(argv=None):
@@ -140,28 +183,46 @@ def main(argv=None):
     ap.add_argument("--spans-out", default="",
                     help="write host-side phase spans as a Chrome trace "
                          "JSON (open in Perfetto)")
-    ap.add_argument("--device", default="cuda",
+    ap.add_argument("--device", default=None,
                     help="cuda (default; raises without a card) or cpu")
+    ap.add_argument("--force-devices", type=int, default=0,
+                    help="run on N gloo ranks on the CPU, the agents split "
+                         "over them (N must divide --agents)")
     ap.add_argument("--use-kernel", action=argparse.BooleanOptionalAction,
                     default=True,
                     help="FrODO update through the hand-written kernels")
     args = ap.parse_args(argv)
+    if args.force_devices and args.device not in (None, "cpu"):
+        raise ValueError("--force-devices runs CPU ranks; it does not "
+                         f"combine with --device {args.device}")
 
-    run_training(arch=args.arch, smoke=args.smoke, steps=args.steps,
-                 agents=args.agents, seq=args.seq,
-                 batch_per_agent=args.batch_per_agent,
-                 optimizer=args.optimizer, alpha=args.alpha, beta=args.beta,
-                 lam=args.lam, T=args.T, memory_mode=args.memory_mode,
-                 topology=args.topology,
-                 consensus_interval=args.consensus_interval,
-                 ckpt_dir=args.ckpt_dir, metrics_out=args.metrics_out,
-                 collect_metrics=args.collect_metrics, seed=args.seed,
-                 profile_dir=args.profile_dir,
-                 profile_start=args.profile_start,
-                 profile_stop=args.profile_stop, spans_out=args.spans_out,
-                 device=args.device, use_kernel=args.use_kernel,
-                 n_layers=args.n_layers, K=args.K, acc_dtype=args.acc_dtype,
-                 param_dtype=args.param_dtype)
+    import torch.distributed as dist
+
+    launched = ("WORLD_SIZE" in os.environ and not args.force_devices
+                and not dist.is_initialized())
+    if launched:
+        _env_group(args.device)
+    run = (run_training if not args.force_devices
+           else lambda **kw: run_forced(args.force_devices, **kw))
+    try:
+        run(arch=args.arch, smoke=args.smoke, steps=args.steps,
+            agents=args.agents, seq=args.seq,
+            batch_per_agent=args.batch_per_agent,
+            optimizer=args.optimizer, alpha=args.alpha, beta=args.beta,
+            lam=args.lam, T=args.T, memory_mode=args.memory_mode,
+            topology=args.topology,
+            consensus_interval=args.consensus_interval,
+            ckpt_dir=args.ckpt_dir, metrics_out=args.metrics_out,
+            collect_metrics=args.collect_metrics, seed=args.seed,
+            profile_dir=args.profile_dir,
+            profile_start=args.profile_start,
+            profile_stop=args.profile_stop, spans_out=args.spans_out,
+            device=args.device, use_kernel=args.use_kernel,
+            n_layers=args.n_layers, K=args.K, acc_dtype=args.acc_dtype,
+            param_dtype=args.param_dtype)
+    finally:
+        if launched:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

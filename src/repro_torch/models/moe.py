@@ -23,9 +23,15 @@ expert weights on every call.
 
 A caller that must never drop (decode at one position per row, where the
 JAX package routes each row alone and a token's k distinct experts always
-fit) passes ``min_capacity`` = the row count.  ``dispatch_groups`` > 1
-(shard-local dispatch over a device mesh) belongs to the distributed
-slice.
+fit) passes ``min_capacity`` = the row count.
+
+``dispatch_groups`` = G > 1 splits the N tokens into G groups of N/G (the
+data-parallel shards of the JAX package's mesh): each group has its own
+capacity ``_capacity(N/G)`` (raised to ``min_capacity``) and scatters only
+its own tokens, into its own C rows of each expert in one (E, G*C, d)
+buffer (the JAX package's (G, E, C, d) buffer with each expert's groups
+side by side), so the expert products stay one batched matmul over E; the
+combine stays within each group.
 
 Aux losses: load balance (Switch-style) and router z-loss, returned for
 the trainer to add.
@@ -110,30 +116,46 @@ def moe_mlp(params: dict, x: torch.Tensor, cfg: ModelConfig,
             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """x: (B, S, d) -> (out (B, S, d), aux_loss f32 scalar, or None
     without ``with_aux``: decode drops it, which the JAX package's compiler
-    does for it).  The expert capacity is the JAX package's, raised to
-    ``min_capacity``."""
+    does for it).  The expert capacity is the JAX package's, per dispatch
+    group, raised to ``min_capacity``: at the token count or above nothing
+    drops, so decode at one position per row takes any row count."""
     m = cfg.moe
-    if m.dispatch_groups > 1:
-        raise NotImplementedError(
-            "dispatch_groups > 1 (shard-local MoE dispatch) belongs to the "
-            "distributed slice (ROADMAP.md, queue 1)")
     B, S, d = x.shape
     N = B * S
     E, k = m.n_experts, m.top_k
-    C = max(_capacity(N, m), min_capacity)
+    G = max(1, m.dispatch_groups)
+    if min_capacity >= N:
+        G = 1      # no group can drop: the split changes nothing
+    if N % G:
+        raise ValueError(f"{N} tokens do not split into {G} dispatch groups")
+    n = N // G
+    C = max(_capacity(n, m), min_capacity)
     xt = x.reshape(N, d)
 
     logits, probs, top_w, top_e = route(params, xt, cfg)
-    buf, dest, keep, _ = _dispatch_one(xt, top_e, E, k, C)
+    parts = [_dispatch_one(xt[g * n:(g + 1) * n], top_e[g * n:(g + 1) * n],
+                           E, k, C) for g in range(G)]
+    # one (E, G*C, d) buffer: each expert's rows of every group, so the
+    # expert products are one batched matmul over E
+    buf = parts[0][0] if G == 1 else torch.stack(
+        [p[0] for p in parts], dim=1).reshape(E, G * C, d)
+    # each assignment's row of it (a row past the end where it dropped)
+    rows = torch.cat([
+        torch.where(keep, (dest // C) * (G * C) + g * C + dest % C,
+                    torch.full_like(dest, E * G * C))
+        for g, (_, dest, keep, _) in enumerate(parts)])
+    keep = torch.cat([p[2] for p in parts])
 
-    # ---- batched expert MLP: (E, C, d) x (E, d, ff)
+    # ---- batched expert MLP: (E, G*C, d) x (E, d, ff)
     ex = params["experts"]
     h = L.activation(cfg.activation)(torch.bmm(buf, ex["gate"])) \
         * torch.bmm(buf, ex["up"])
-    out_buf = torch.bmm(h, ex["down"])                     # (E, C, d)
+    out_buf = torch.bmm(h, ex["down"])                     # (E, G*C, d)
 
-    # ---- gather back and combine, term by term in assignment order
-    gathered = out_buf.reshape(E * C, d)[torch.clamp(dest, max=E * C - 1)]
+    # ---- gather back and combine (within each group: a token's k rows
+    # are its group's), term by term in assignment order
+    R = E * G * C
+    gathered = out_buf.reshape(R, d)[torch.clamp(rows, max=R - 1)]
     gathered = torch.where(keep[:, None], gathered,
                            torch.zeros((), dtype=gathered.dtype,
                                        device=x.device))

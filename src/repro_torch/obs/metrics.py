@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch import tree as T
+from repro_torch.distributed import comm
 
 Tree = Any
 
@@ -149,22 +150,32 @@ def global_norm(tree: Tree) -> torch.Tensor:
     return torch.sqrt(tree_sq_sum(tree))
 
 
-def consensus_error(tree: Tree) -> torch.Tensor:
+def consensus_error(tree: Tree, group=None) -> torch.Tensor:
     """RMS per-agent disagreement sqrt(1/A sum_i ||x_i - x̄||^2), the norm
     taken over all leaves jointly.  Leaves carry a leading agent dim A.
-    It is the Lyapunov quantity of Thm 2.1 and is 0 exactly at consensus."""
+    It is the Lyapunov quantity of Thm 2.1 and is 0 exactly at consensus.
+    With a process ``group`` (``distributed.comm``) the leaves hold this
+    rank's slice of the agents, and the mean and the sum span every
+    rank's."""
     leaves = T.leaves(tree)
     if not leaves:
         return torch.zeros((), dtype=torch.float32)
     A = leaves[0].shape[0]
+    A_all = A if group is None else A * comm.world_size(group)
     per_agent = torch.zeros((A,), dtype=torch.float32,
                             device=leaves[0].device)
     for l in leaves:
         v = l.float()
-        mean = torch.mean(v, dim=0, keepdim=True)
+        if group is None:
+            mean = torch.mean(v, dim=0, keepdim=True)
+        else:
+            mean = comm.all_reduce_sum(torch.sum(v, dim=0, keepdim=True),
+                                       group) / A_all
         per_agent = per_agent + torch.sum(
             torch.square(v - mean).reshape(A, -1), dim=1)
-    return torch.sqrt(torch.mean(per_agent))
+    if group is None:
+        return torch.sqrt(torch.mean(per_agent))
+    return torch.sqrt(comm.all_reduce_sum(per_agent.sum(), group) / A_all)
 
 
 def frodo_step_metrics(grads: Tree, memory_terms: Tree,

@@ -74,11 +74,13 @@ def global_norm(tree) -> torch.Tensor:
                           for x in TR.leaves(tree)))
 
 
-def clip_by_global_norm(tree, max_norm: float):
+def clip_by_global_norm(tree, max_norm: float, norm=None):
     """Scale every leaf by ``min(1, max_norm / norm)``.  Scaled in f32 and
     rounded once to the leaf's dtype, as the JAX package does (a bf16 leaf
     times a 0-d f32 tensor would stay bf16 in torch and round the scale
-    first)."""
-    norm = global_norm(tree)
+    first).  ``norm`` is ``global_norm(tree)`` unless given (the
+    agent-sharded step passes the norm over every rank's agents)."""
+    if norm is None:
+        norm = global_norm(tree)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     return TR.tree_map(lambda x: (x.float() * scale).to(x.dtype), tree), norm

@@ -12,9 +12,20 @@ keeps both plain.)  The FrODO update is elementwise over that tensor; the
 consensus stage mixes the agent dim.  A=1 is centralized fractional-order
 GD, the paper's N=1 corner.
 
-The mesh-constrained consensus (``mix_uniform_constrained``) and the
-sharding-spec functions of the JAX module belong to the distributed slice
-and are not ported yet.
+**Agent-sharded.**  Given a process group of w ranks, rank r holds agents
+``[r·A/w, (r+1)·A/w)`` of that layout (the JAX package shards the agent
+dim over the agent mesh axes).  The per-agent work and the update are
+local; what spans agents goes through ``torch.distributed``: the gradient
+clip's norm (each rank's squared sum, all-reduced), the consensus (a
+uniform complete W through ``mix_uniform_constrained``, as the JAX step
+does under a mesh; every other W, the fault schedule's W_t and the
+hierarchical schedule's Kronecker factors included, through
+``general_mix``), and the metrics.  The result is the one-process stacked
+run's to f32 rounding (bit for bit at one rank).
+
+The sharding-spec functions (``build_rules``, ``param_specs``,
+``train_state_specs``, ...) give the JAX package's specs for the same
+trees.
 """
 from __future__ import annotations
 
@@ -33,6 +44,8 @@ from repro_torch.core import graph as G
 from repro_torch.core.faults import FaultSchedule
 from repro_torch.core.frodo import (FrodoConfig, Optimizer, apply_updates,
                                     frodo)
+from repro_torch.distributed import comm
+from repro_torch.distributed import sharding as SH
 from repro_torch.models import transformer as T
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.training.loss import (chunked_cross_entropy,
@@ -113,6 +126,171 @@ def _weights(kind: str, A: np.ndarray) -> np.ndarray:
             "xiao_boyd": G.xiao_boyd_weights}[kind](A)
 
 
+# ------------------------------------------------------------------ rules
+# The spec functions take any mesh that ``SH.mesh_axis_sizes`` reads (a
+# ``DeviceMesh``, or an object with ``axis_names`` and ``devices.shape``)
+# and trees of tensors (``meta`` ones at full size) or of anything with a
+# ``shape``; a leaf without one (the optimizer's host-integer step) is a
+# scalar.
+
+def build_rules(cfg: ModelConfig, multi_pod: bool) -> Dict[str, Any]:
+    agent_axes = cfg.agent_axes_multi if multi_pod else cfg.agent_axes_single
+    all_data = ("pod", "data") if multi_pod else ("data",)
+    leftover = tuple(a for a in all_data if a not in agent_axes)
+    rules = dict(SH.DEFAULT_RULES)
+    rules["agent"] = tuple(agent_axes) or None
+    rules["batch"] = leftover or None
+    rules["fsdp"] = leftover if (cfg.fsdp and leftover) else None
+    return rules
+
+
+def serve_rules(cfg: ModelConfig, multi_pod: bool, batch: int,
+                mesh, weights_fsdp: bool = False) -> Dict[str, Any]:
+    """Serving has no agents: batch over the data axes when divisible, else
+    the KV sequence dim takes them (flash-decode style cache split).
+
+    ``weights_fsdp`` additionally shards weights over the data axes
+    (gathered per layer at use) — required to fit models whose TP-sharded
+    weights alone exceed a device's memory (kimi-k2)."""
+    sizes = SH.mesh_axis_sizes(mesh)
+    all_data = ("pod", "data") if multi_pod else ("data",)
+    total = int(np.prod([sizes[a] for a in all_data]))
+    rules = dict(SH.DEFAULT_RULES)
+    rules["agent"] = None
+    if batch % total == 0 and batch >= total:
+        rules["batch"] = all_data
+        rules["kv_seq"] = "model"       # split long caches across TP shards
+    else:
+        rules["batch"] = None
+        rules["kv_seq"] = all_data + ("model",)
+    rules["fsdp"] = all_data if weights_fsdp else None
+    return rules
+
+
+def n_agents_for(cfg: ModelConfig, mesh, multi_pod: bool) -> int:
+    sizes = SH.mesh_axis_sizes(mesh)
+    axes = cfg.agent_axes_multi if multi_pod else cfg.agent_axes_single
+    return int(np.prod([sizes[a] for a in axes])) if axes else 1
+
+
+# ------------------------------------------------------------- spec trees
+
+def _shape(leaf) -> tuple:
+    return tuple(getattr(leaf, "shape", ()))
+
+
+def sanitize_specs(specs: Any, shapes: Any, mesh) -> Any:
+    """Drop mesh axes from dims they don't divide."""
+    sizes = SH.mesh_axis_sizes(mesh)
+    return TR.tree_map(
+        lambda spec, leaf: SH.divisible_spec(spec, _shape(leaf), sizes),
+        specs, shapes)
+
+
+def param_specs(param_shapes: Any, rules: Dict[str, Any], mesh,
+                agent_stacked: bool = True) -> Any:
+    specs = SH.spec_tree(param_shapes, rules, agent_stacked=agent_stacked)
+    return sanitize_specs(specs, param_shapes, mesh)
+
+
+def opt_state_specs(opt_shapes: Any, p_specs: Any, param_shapes: Any,
+                    mesh) -> Any:
+    """Derive optimizer-state specs from param specs: leaves whose shape is
+    (X,) + param_shape get (None,) + param_spec; same-shape leaves inherit.
+    The optimizers' state paths are the JAX package's ("hist/<param
+    path>", "acc/...", "m/...", "v/...", "mom/..."), so the same match
+    finds them."""
+    flat_p = SH.flatten_with_paths(param_shapes)
+    flat_ps = SH.flatten_with_paths(p_specs)
+
+    def match(path: str, leaf):
+        parts = path.split("/", 1)
+        if len(parts) == 2 and parts[1] in flat_p:
+            pshape = _shape(flat_p[parts[1]])
+            pspec = flat_ps[parts[1]]
+            if _shape(leaf) == pshape:
+                return pspec
+            if _shape(leaf)[1:] == pshape:
+                return SH.P(*((None,) + tuple(pspec)))
+        return SH.P()
+
+    flat_o = SH.flatten_with_paths(opt_shapes)
+    return SH.unflatten_with_paths({p: match(p, l)
+                                    for p, l in flat_o.items()})
+
+
+_CACHE_AXES = {
+    "k": ("batch", "kv_seq", "kv_heads", None),
+    "v": ("batch", "kv_seq", "kv_heads", None),
+    "ssm": ("batch", "heads", None, None),
+    "conv": ("batch", None, "mlp"),
+    "h": ("batch", "mlp"),
+    "c_kv": ("batch", "kv_seq", None),
+    "k_rope": ("batch", "kv_seq", None),
+    "cross_k": ("batch", "frames", "kv_heads", None),
+    "cross_v": ("batch", "frames", "kv_heads", None),
+}
+
+
+def _last_keys(tree: Any, key: str = ""):
+    """Each leaf's own key (dict key or NamedTuple field), in
+    ``tree.flatten`` order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _last_keys(tree[k], k)
+    elif isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        for k in tree._fields:
+            yield from _last_keys(getattr(tree, k), k)
+    else:
+        yield key
+
+
+def cache_specs(cache_shapes: Any, rules: Dict[str, Any], mesh) -> Any:
+    """Specs for the decode cache: leaves are matched by their final field
+    name (KVCache.k, MambaCache.ssm, ...); every leaf carries a leading
+    layer-stack dim."""
+    flat, treedef = TR.flatten(cache_shapes)
+    specs = []
+    for key, leaf in zip(_last_keys(cache_shapes), flat):
+        nd = len(_shape(leaf))
+        axes = (None,) + _CACHE_AXES.get(key, ())   # layer-stack dim
+        specs.append(SH.logical_to_spec((axes + (None,) * nd)[:nd], rules))
+    return sanitize_specs(TR.unflatten(treedef, specs), cache_shapes, mesh)
+
+
+def batch_specs_serve(batch_shapes: Dict[str, Any], rules: Dict[str, Any],
+                      mesh) -> Dict[str, Any]:
+    """Serving batch: (B, S[, ...]) -> (batch, None, ...)."""
+    specs = TR.tree_map(lambda leaf: SH.logical_to_spec(
+        ("batch",) + (None,) * (len(_shape(leaf)) - 1), rules), batch_shapes)
+    return sanitize_specs(specs, batch_shapes, mesh)
+
+
+def batch_specs(batch_shapes: Dict[str, Any], rules: Dict[str, Any],
+                mesh) -> Dict[str, Any]:
+    """Training batch: (A, B_local, S[, ...]) -> (agent, batch, None...)."""
+    specs = TR.tree_map(lambda leaf: SH.logical_to_spec(
+        ("agent", "batch") + (None,) * (len(_shape(leaf)) - 2), rules),
+        batch_shapes)
+    return sanitize_specs(specs, batch_shapes, mesh)
+
+
+def train_state_specs(state_shapes: "TrainState", cfg: ModelConfig,
+                      rules: Dict[str, Any], mesh) -> "TrainState":
+    ps = param_specs(state_shapes.params, rules, mesh, agent_stacked=True)
+    os_ = opt_state_specs(state_shapes.opt_state, ps, state_shapes.params,
+                          mesh)
+    os_ = sanitize_specs(os_, state_shapes.opt_state, mesh)
+    return TrainState(ps, os_, SH.P())
+
+
+def abstract_train_state(cfg: ModelConfig, tc: "TrainConfig",
+                         n_agents: int) -> "TrainState":
+    """The train state on the ``meta`` device: shapes and dtypes, no
+    storage (the dry-run's counterpart of JAX's ``eval_shape``)."""
+    return init_train_state(torch.Generator(), cfg, tc, n_agents, "meta")
+
+
 # --------------------------------------------------------------- the step
 
 def make_loss_fn(cfg: ModelConfig, tc: TrainConfig):
@@ -145,15 +323,34 @@ def _agent_grads(loss_fn, flat, treedef, batch, n_agents):
     return loss, met, grads
 
 
+def _global_norm(tree: Any, group=None) -> torch.Tensor:
+    """The L2 norm over every leaf of every agent: the squares summed in
+    f32 in leaf order (``loss.global_norm``'s sum), and with a ``group``
+    each rank's sum all-reduced before the root."""
+    sq = obs_metrics.tree_sq_sum(tree)
+    if group is not None:
+        comm.all_reduce_sum(sq, group)
+    return torch.sqrt(sq)
+
+
 def make_train_step(cfg: ModelConfig, tc: TrainConfig, n_agents: int,
-                    n_pods: int = 1) -> Callable:
+                    n_pods: int = 1, group=None) -> Callable:
     """Builds train_step(state, batch) -> (state, metrics).  Batch leaves
-    (numpy arrays or tensors) carry the leading agent dim A (= n_agents).
-    The optimizer state is advanced in place: the state passed in is
-    consumed."""
+    (numpy arrays or tensors) carry the leading agent dim: all A
+    (= n_agents) agents, or with a process ``group`` (``distributed.comm``)
+    this rank's A / world of them, as its state does.  The optimizer state
+    is advanced in place: the state passed in is consumed."""
     opt = build_optimizer(tc)
     W, W_intra, W_pod = build_mixing(tc, n_agents, n_pods)
     loss_fn = make_loss_fn(cfg, tc)
+    A_loc, lo = n_agents, 0
+    if group is not None:
+        world = comm.world_size(group)
+        if n_agents % world:
+            raise ValueError(f"{n_agents} agents do not split over {world} "
+                             f"ranks")
+        A_loc = n_agents // world
+        lo = comm.rank(group) * A_loc
 
     faults = None
     if tc.fault_schedule is not None and n_agents > 1:
@@ -184,8 +381,8 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, n_agents: int,
         in f32 when tc.microbatches > 1."""
         M = tc.microbatches
         if M <= 1:
-            return _agent_grads(loss_fn, flat, treedef, batch, n_agents)
-        mb = {k: v.reshape((n_agents, M, v.shape[1] // M) + v.shape[2:])
+            return _agent_grads(loss_fn, flat, treedef, batch, A_loc)
+        mb = {k: v.reshape((A_loc, M, v.shape[1] // M) + v.shape[2:])
               for k, v in batch.items()}
         g_acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
                  for p in flat]
@@ -193,12 +390,42 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, n_agents: int,
         for m in range(M):
             l, met, g = _agent_grads(loss_fn, flat, treedef,
                                      {k: v[:, m] for k, v in mb.items()},
-                                     n_agents)
+                                     A_loc)
             g_acc = [a + b.float() for a, b in zip(g_acc, g)]
             l_acc = l_acc + l
             m_acc = {k: m_acc[k] + met[k] for k in m_acc}
         return (l_acc / M, {k: v / M for k, v in m_acc.items()},
                 [x / M for x in g_acc])
+
+    def mix(params, step: int, dev):
+        """Stage 3: consensus over the agent dim."""
+        if group is None:
+            if faults is not None:
+                return C.mix_time_varying(params, fault_arrays(dev)[1], step)
+            if W is None:
+                return C.mix_hierarchical(params, W_intra, W_pod, step,
+                                          tc.cross_pod_period)
+            return C.mix_stacked(params, W)
+        if faults is not None:
+            W_seq = fault_arrays(dev)[1]
+            return C.general_mix(params, W_seq[step % W_seq.shape[0]], group)
+        if W is None:
+            cross = step % tc.cross_pod_period == 0
+            return C.general_mix(params, np.kron(
+                W_pod if cross else np.eye(n_pods), W_intra), group)
+        if C.is_uniform_complete(W):
+            return C.mix_uniform_constrained(params, group, n_agents)
+        return C.general_mix(params, W, group)
+
+    def gather_agents(loss, metrics):
+        """Per-agent loss and metrics of all A agents, (A,) each."""
+        if group is None:
+            return loss, metrics
+        keys = sorted(metrics)
+        packed = torch.stack([loss.float()] + [metrics[k].float()
+                                               for k in keys], dim=1)
+        allp = comm.all_gather(packed, group).reshape(n_agents, -1)
+        return allp[:, 0], {k: allp[:, i + 1] for i, k in enumerate(keys)}
 
     def train_step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
         flat, treedef = TR.flatten(state.params)
@@ -210,20 +437,21 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, n_agents: int,
 
         if tc.grad_clip > 0:
             grads, gnorm = clip_by_global_norm(
-                grads, float(tc.grad_clip * np.sqrt(n_agents)))
+                grads, float(tc.grad_clip * np.sqrt(n_agents)),
+                norm=_global_norm(grads, group))
         else:
             gnorm = torch.zeros((), dtype=torch.float32, device=dev)
 
         if faults is not None:
             # stragglers / crashed agents: gradient discarded and update
             # withheld for the step (state moves only via consensus)
-            fault_u, fault_W_seq = fault_arrays(dev)
-            u_t = fault_u[state.step % fault_u.shape[0]]
+            fault_u = fault_arrays(dev)[0]
+            u_t = fault_u[state.step % fault_u.shape[0]][lo:lo + A_loc]
 
             def agent_mask(t):
                 return TR.tree_map(
                     lambda v: v * u_t.reshape(
-                        (n_agents,) + (1,) * (v.dim() - 1)).to(v.dtype), t)
+                        (A_loc,) + (1,) * (v.dim() - 1)).to(v.dtype), t)
 
             grads = agent_mask(grads)
 
@@ -233,32 +461,29 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, n_agents: int,
             delta = agent_mask(delta)
         params = apply_updates(state.params, delta)
         del delta
+        loss, metrics = gather_agents(loss, metrics)
         out_metrics = {"loss": torch.mean(loss), "grad_norm": gnorm,
                        "agent_loss": loss}
         out_metrics.update({k: torch.mean(v) for k, v in metrics.items()})
         if tc.collect_metrics:
             # optimizer aux (||M||, ||delta||; its grad_norm is post-clip —
-            # the pre-clip gnorm above wins the key)
+            # the pre-clip gnorm above wins the key); norms over every
+            # rank's agents
             if isinstance(opt_state, dict):
                 for k, v in opt_state.get("metrics", {}).items():
+                    if group is not None:
+                        v = torch.sqrt(comm.all_reduce_sum(v * v, group))
                     out_metrics.setdefault(k, v)
             out_metrics["consensus_error_pre_mix"] = \
-                obs_metrics.consensus_error(params)
+                obs_metrics.consensus_error(params, group)
 
-        # stage 3: consensus over the agent dim
         if n_agents > 1 and state.step % tc.consensus_interval == 0:
-            if faults is not None:
-                params = C.mix_time_varying(params, fault_W_seq, state.step)
-            elif W is None:
-                params = C.mix_hierarchical(params, W_intra, W_pod,
-                                            state.step, tc.cross_pod_period)
-            else:
-                params = C.mix_stacked(params, W)
+            params = mix(params, state.step, dev)
 
         if tc.collect_metrics:
             out_metrics["consensus_error"] = obs_metrics.consensus_error(
-                params)
-            out_metrics["param_norm"] = obs_metrics.global_norm(params)
+                params, group)
+            out_metrics["param_norm"] = _global_norm(params, group)
             if faults is not None:
                 t = state.step % faults.n_steps
                 out_metrics.update({k: v[t]

@@ -71,6 +71,26 @@ def test_port_runs_in_a_process_without_jax():
     assert out.returncode == 0, out.stderr
 
 
+def test_distributed_layer_is_covered_and_starts_no_group():
+    """The distributed layer and the mesh builders are among the checked
+    files, import without jax, and importing them starts no process
+    group."""
+    files = {os.path.relpath(f, ROOT) for f in _port_files()}
+    for name in ("distributed/__init__.py", "distributed/sharding.py",
+                 "distributed/comm.py", "launch/mesh.py"):
+        assert os.path.join("src", "repro_torch", name) in files
+    code = ("import sys, torch.distributed as dist\n"
+            "import repro_torch.distributed.sharding, "
+            "repro_torch.distributed.comm, repro_torch.launch.mesh\n"
+            "assert not dist.is_initialized()\n"
+            "assert not [m for m in sys.modules if m == 'jax' or "
+            "m.startswith(('jax.', 'repro.'))], 'jax loaded'\n")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
 def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -106,6 +126,8 @@ def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
             call()
     for call in (lambda: DR.main(["--arch", "mamba2-780m", "--shape",
                                   "train_4k", "--out", ""]),
+                 lambda: DR.main(["--both-meshes", "--arch", "mamba2-780m",
+                                  "--out", ""]),
                  lambda: DR.run_one("mamba2-780m", "train_4k"),
                  lambda: RG.main(["--check", "--exp", "exp1"]),
                  lambda: RG.check("exp1", RG.DEFAULT_BASELINE_DIR, None,

@@ -173,13 +173,6 @@ def test_decode_rows_never_drop():
     assert not np.allclose(dropped.numpy(), want, **TOL)
 
 
-def test_dispatch_groups_belong_to_the_distributed_slice():
-    cfg, _ = configs(ARCHS[0], dispatch_groups=2)
-    _, p = layer(configs(ARCHS[0])[1])
-    with pytest.raises(NotImplementedError, match="distributed"):
-        M.moe_mlp(p, torch.zeros(2, 4, cfg.d_model), cfg)
-
-
 @pytest.mark.parametrize("arch", ARCHS)
 def test_no_drop_keeps_every_assignment(arch):
     """``no_drop`` raises the capacity to every token: the 16 rows of
