@@ -116,7 +116,7 @@ Phases, each printing one JSON line:
     size 1 against ``mix_stacked`` (and whether NCCL's send to self ran
     ``ring_mix``); h2o-danube-1.8b at full width, 2 layers, seq 4096, 2
     agents x 2 sequences, exp-sum K = 8 with f32 accumulators through the
-    kernel, a clip that binds, 6 steps: the one-process stacked run, the
+    kernel, a clip that binds, 4 steps: the one-process stacked run, the
     agent-sharded step at world size 1 on NCCL (bit-equal to it), and two
     ranks (one agent each) sharing the card over gloo, each held against
     the stacked run (every agent's loss, its accumulators' norms, its
@@ -127,6 +127,24 @@ Phases, each printing one JSON line:
     width (one MoE layer, 2 x 4096 tokens, bf16, 4 groups) against one
     group at an ample capacity and against a plain per-group version at
     the config's;
+16b. tensor_parallel: the same trainer on a (data 2, model 2) mesh, four
+    gloo ranks sharing the card, each holding its agent's shards
+    (``train_state_specs``), against the distributed phase's stacked run
+    (every agent's loss, the whole accumulator and parameter norms, the
+    clip norm against the spec tree's, the gathered parameters within
+    two bf16 ulps, replicated leaves bit-equal across model ranks, each
+    rank's state at most 0.55 of an agent's, the exp-sum launches per
+    rank), with ms/step, the all-reduce's ms, bytes and calls a step by
+    group and peak memory per rank; the same ranks then take 2 steps with
+    exact memory at T = 8 (the exact kernel on every local shard) against
+    a stacked exact run at T = 8 (the same checks, the history's norms in
+    place of the accumulators'); then ``make_prefill`` (2 x 512) and
+    32 ``make_serve_step`` steps (batch 8, a 4,096-slot cache split over
+    "model") on two ranks under ``serve_rules`` at 4 layers, against the
+    one-process units (f32: logits rtol 1e-4, tokens equal; bf16: within
+    the decode limit); a row-parallel reduce skipped in layer 0, a clip
+    norm counting replicated leaves on every model rank and a
+    partial-softmax combine without its max rescale must fail;
 17. timing: CUDA-event medians of each kernel, its plain version and (exact)
    one library call, beside the memory bound; the Exp 2 ms/step;
 18. profile: torch.profiler device time per launch of each kernel at each
@@ -142,13 +160,16 @@ llm_train_mamba2, llm_train_qwen3_moe, llm_train_minicpm3,
 llm_train_minicpm3_exact, llm_train_phi3_vision, llm_train_whisper,
 llm_train_recurrentgemma, serve_<arch> for the seven served models
 (none on the serve paths), dryrun_probe, ablations,
-distributed_stacked, distributed_world1 and distributed_2ranks (the two
-ranks' sum), each counted from 0 just before the path runs), the
+distributed_stacked, distributed_world1, distributed_2ranks,
+tensor_parallel_4ranks, tensor_parallel_stacked_exact and
+tensor_parallel_exact_4ranks (the ranks' sums), each counted from 0 just
+before the path runs), the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Any failed
 check raises, so the script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import json
@@ -1542,16 +1563,32 @@ SERVE_TRAFFIC = {"h2o-danube-1.8b": (SERVE_FULL, 4),
 #: recurrentgemma-9b's traffic and then phi-3-vision's are cut: their
 #: serving took 23 s and 47 s in place of 48 s and 61 s, and the script
 #: 999.1 s on a host that ran Exp 3 in 211.5 s, ~1,058 s at that pace.
+#: The tensor_parallel phase adds ~45-55 s and the distributed phase's
+#: cut from 6 to 4 steps saves ~8: qwen3-moe's, minicpm3's and mamba2's
+#: traffic are halved again (each ~11-14 s of its time at the earlier
+#: depth, from the savings above); with them the script took 939.6 s on
+#: a host that ran Exp 3 in 175.8 s (before it: 937.5 s on one at 180 s), so
+#: h2o-danube's and phi-3-vision's traffic are halved as well; then 945.9
+#: s on a host at 195.2 s, ~1,085 s at the slowest host's pace, so
+#: mamba2's, phi-3-vision's and recurrentgemma-9b's were halved again:
+#: 955.3 s on a host at 217.4 s, ~984 s at that pace, ~100 s more than
+#: the 5 s needed.  That last halving is undone (it saved ~15-20 s), and
+#: the tensor_parallel phase's exact-memory steps take ~10 s of the room.
 SERVE_TRAFFIC_CUT = ("traffic only, decode vs forward at full depth: "
                      "the script's 1,200 s limit")
 SERVE_TRAFFIC_LAYERS = {
-    "qwen3-moe-30b-a3b": (12, "48 -> 12, " + SERVE_TRAFFIC_CUT),
-    "minicpm3-4b": (16, "62 -> 16, " + SERVE_TRAFFIC_CUT),
-    "mamba2-780m": (16, "48 -> 16, " + SERVE_TRAFFIC_CUT),
-    "h2o-danube-1.8b": (8, "24 -> 8, " + SERVE_TRAFFIC_CUT),
+    "qwen3-moe-30b-a3b": (6, "48 -> 6 (12 until the tensor_parallel "
+                             "phase), " + SERVE_TRAFFIC_CUT),
+    "minicpm3-4b": (8, "62 -> 8 (16 until the tensor_parallel phase), "
+                       + SERVE_TRAFFIC_CUT),
+    "mamba2-780m": (8, "48 -> 8 (16 until the tensor_parallel phase), "
+                       + SERVE_TRAFFIC_CUT),
+    "h2o-danube-1.8b": (4, "24 -> 4 (8 until the tensor_parallel "
+                           "phase), " + SERVE_TRAFFIC_CUT),
     "recurrentgemma-9b": (6, "38 -> 6 (two rec, rec, local-attention "
                              "groups, no tail), " + SERVE_TRAFFIC_CUT),
-    "phi-3-vision-4.2b": (16, "32 -> 16, " + SERVE_TRAFFIC_CUT)}
+    "phi-3-vision-4.2b": (8, "32 -> 8 (16 until the tensor_parallel "
+                             "phase), " + SERVE_TRAFFIC_CUT)}
 #: scheduler steps under the profiler (busy share)
 SERVE_PROFILE = (12, 15)
 #: serve.step columns that do not read a clock
@@ -2313,9 +2350,11 @@ def harness_phase(dev, dryrun_dir: str, tmp: str) -> list:
 #: (0.1 sqrt(A)) binds at every step (the phase checks it), so a norm left
 #: unreduced changes the update.
 DIST = dict(n_layers=2, seq=4096, batch_per_agent=2, agents=2, K=8,
-            grad_clip=0.1, steps=6, planted_steps=1, ranks=2)
+            grad_clip=0.1, steps=4, planted_steps=1, ranks=2)
 DIST_REDUCED = {
     "n_layers": "24 -> 2 (the dry-run probe's 2-layer step)",
+    "steps": "6 -> 4 (room for the tensor_parallel phase, which holds its "
+             "ranks against this phase's stacked run)",
     "global_batch": "256 -> 4 (2 agents x 2 sequences of train_4k's 4096)",
     "ranks": "2 ranks, one agent each, share one H100 over gloo (NCCL "
              "refuses two ranks on one card); NCCL runs at world size 1"}
@@ -2377,7 +2416,8 @@ def dist_run(tr, steps: int) -> tuple:
     state, every agent's loss per step, the pre-clip norm per step, the
     host ms per step (each step ends in a device sync) and, per step and
     per agent of this process, the f32 norm of each parameter leaf and of
-    each leaf's exp-sum accumulators (the clipped gradients' memory)."""
+    each leaf's memory (the clipped gradients': the exp-sum accumulators
+    or the exact history)."""
     import torch
     from repro_torch import tree as TR
     from repro_torch.data.synthetic import TokenPipeline
@@ -2393,7 +2433,7 @@ def dist_run(tr, steps: int) -> tuple:
         ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(met["agent_loss"].float().cpu().tolist())
         norms.append(float(met["grad_norm"]))
-        accs = TR.leaves(state.opt_state["acc"])         # (K, A_local, ...)
+        accs = TR.leaves(memory_of(state))           # (K or T, A_local, ...)
         params = TR.leaves(state.params)                 # (A_local, ...)
         acc_norms.append(torch.stack([torch.stack(
             [torch.linalg.vector_norm(a[:, i].float()) for a in accs]
@@ -2407,6 +2447,13 @@ def dist_run(tr, steps: int) -> tuple:
                          n_agents=DIST["agents"], seed=0)
     state = tr.run(tr.init(seed=0), iter(data), steps)
     return state, losses, norms, ms, acc_norms
+
+
+def memory_of(state):
+    """The FrODO memory tree of a train state: the exp-sum accumulators or
+    the exact history."""
+    opt = state.opt_state
+    return opt["acc"] if "acc" in opt else opt["hist"]
 
 
 def dist_held(losses, acc_norms, ref_losses, ref_acc_norms) -> tuple:
@@ -2718,6 +2765,7 @@ def distributed_phase(dev) -> dict:
         flat = TR.leaves(ref_state.params)
         for r in range(DIST["ranks"]):
             torch.save({"losses": ref_losses, "acc_norms": ref_acc,
+                        "grad_norm": ref_norms,
                         "params": [t[r].cpu() for t in flat]},
                        os.path.join(tmp, f"ref{r}.pt"))
         n_leaves = len(flat)
@@ -2794,7 +2842,673 @@ def distributed_phase(dev) -> dict:
          tol={"loss": DIST_LOSS_TOL, "param_bf16_ulps": DIST_ULPS,
               "state_norms": DIST_STATE_TOL, "forms": DIST_MIX_TOL},
          moe_groups=moe, seconds=time.perf_counter() - t_phase)
-    return {"launches": launches}
+    return {"launches": launches, "ref_dir": tmp}
+
+
+# -------------------------------------------------------- tensor parallel
+#: tensor-parallel training over the "model" axis: the distributed phase's
+#: model, shape, optimizer and clip on a (data 2, model 2) mesh, four gloo
+#: ranks that share the one card; each rank holds its agent's shards
+#: (``train_state_specs`` under ``build_rules``), the agents go over
+#: "data", the model is split over "model".  Held against the
+#: distributed phase's stacked run (not repeated); then the same ranks
+#: take ``exact_steps`` steps with exact memory (``exact_T`` slots, through
+#: the exact kernel on every local shard) against a stacked exact run
+#: that this process makes meanwhile.
+TP = dict(mesh=(2, 2), steps=DIST["steps"], planted_steps=1, exact_T=8,
+          exact_steps=2)
+TP_REDUCED = {
+    "n_layers": DIST_REDUCED["n_layers"],
+    "global_batch": DIST_REDUCED["global_batch"],
+    "mesh": "(data 2, model 2): four ranks share one H100 over gloo (NCCL "
+            "refuses two ranks on one card); the production mesh's model "
+            "axis is 16",
+    "steps": "4: the distributed phase's stacked run, reused; exact "
+             "memory 2 steps at T = 8"}
+#: serving: the prefill and serve units under serve_rules on (data 1,
+#: model 2), two ranks; h2o-danube at full width, depth 24 -> 4, batch 8;
+#: a prefill of 2 x 512 tokens, then 32 decode steps from an empty cache
+#: of the model's window (4,096 slots, 2,048 a rank), greedy in f32, a
+#: fixed token stream in bf16
+TP_SERVE = dict(mesh=(1, 2), n_layers=4, prefill=(2, 512), batch=8,
+                steps=32, max_len=4096, planted_steps=4)
+TP_SERVE_REDUCED = {"n_layers": "24 -> 4 (the script's time)",
+                    "mesh": "(data 1, model 2): two ranks share one H100 "
+                            "over gloo"}
+# Checks.  Per-agent losses rtol 1e-4 and parameters within DIST_ULPS bf16
+# ulps of the stacked run's (an ulp of an element's own magnitude, or of
+# its leaf's RMS where that is larger: the consensus mean of two agents'
+# values cancels to exactly 0 at thousands of elements a leaf, where an
+# input one ulp off leaves a value of ~1e-10 against 0, which no relative
+# limit holds; those elements are listed), accumulator and parameter norms within
+# DIST_STATE_TOL (each leaf's whole norm: the local shards' squares summed
+# over the model axis, a replicated leaf once): the only arithmetic that
+# differs is the row-parallel sums (f32 over bf16 partials, rounded once)
+# and the order of the sums across ranks.  The clip norm the step used
+# against the norm of the whole gradient taken from the spec tree (a
+# leaf whose spec names "model" adds every rank's shard, any other leaf
+# one copy), f32 sums in another order: rtol 1e-5.  The replicated leaves
+# (the norm scales) hold only ~3e-4 of the squared gradient norm at this
+# width (measured on the CPU at seq 512), so counting them on both model
+# ranks moves the clip by ~1.5e-4: the accumulators (2^-6) cannot see it,
+# this check does.
+TP_NORM_TOL = dict(rtol=1e-5, atol=0.0)
+#: each rank's state (its parameter and accumulator shards) against one
+#: agent's whole state
+TP_STATE_SHARE = 0.55
+#: serving in f32: logits rtol 1e-4 against the one-process units, tokens
+#: equal; in bf16 the decode-vs-forward limit of h2o-danube
+TP_SERVE_TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+def tp_config(n_layers, dtype=None):
+    from repro_torch.configs import registry as REG
+    cfg = REG.get_config(LLM_ARCH).replace(n_layers=n_layers)
+    return cfg if dtype is None else cfg.replace(param_dtype=dtype,
+                                                 compute_dtype=dtype)
+
+
+def _spec_split(spec) -> bool:
+    from repro_torch.distributed import sharding as SH
+    return any("model" in SH.axes_of(p) for p in spec)
+
+
+def _row_parallel_skipped_in_layer0(real):
+    """A planted fault: layer 0's MLP keeps its partial sums (no
+    all-reduce of the down projection)."""
+    from repro_torch.distributed import comm
+
+    def mlp(params, x, act_name, d_ff=None):
+        if params["down"]["w"].storage_offset() != 0:
+            return real(params, x, act_name, d_ff)
+        saved = comm.reduce_from_model
+        comm.reduce_from_model = lambda t, group: t
+        try:
+            return real(params, x, act_name, d_ff)
+        finally:
+            comm.reduce_from_model = saved
+    return mlp
+
+
+def _tp_train_rank(rank: int, world: int, tmp: str, ref_dir: str,
+                   device: str) -> None:
+    """One of the four ranks of the tensor-parallel train run: warm-up,
+    TP["steps"] counted and timed steps, the checks against the stacked
+    run, the two planted faults; results to ``tmp/train<r>.json``."""
+    import numpy as np
+    import torch
+    from repro_torch import convert as CV
+    from repro_torch import tree as TR
+    from repro_torch.data.synthetic import TokenPipeline
+    from repro_torch.device import set_full_precision
+    from repro_torch.distributed import comm
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.kernels import frodo_update as KU
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as ML
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as TM
+    from repro_torch.training import train_step as TS
+
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.set_device(dev)
+    set_full_precision()
+    t_start = time.perf_counter()
+    mesh = ML.make_host_mesh(TP["mesh"][1])
+    coords = SH.mesh_coords(mesh)
+    d_rank, m_rank = coords["data"], coords["model"]
+    model = (mesh, "model")
+    cfg = tp_config(DIST["n_layers"])
+    tc = TS.TrainConfig(memory_mode="expsum", K=DIST["K"], use_kernel=True,
+                        grad_clip=DIST["grad_clip"])
+    tc_exact = TS.TrainConfig(memory_mode="exact", T=TP["exact_T"],
+                              use_kernel=True, grad_clip=DIST["grad_clip"])
+    rules = TS.build_rules(cfg, False)
+    A = DIST["agents"]
+
+    def fresh(tc):
+        """The stacked run's initial draw (``Trainer.init(seed=0)``), this
+        rank's shards of it, and a fresh optimizer state."""
+        gen = torch.Generator(device=dev).manual_seed(0)
+        full = TM.init_params(gen, cfg, (A,), dev)
+        specs = TS.param_specs(full, rules, mesh)
+        shapes = TR.tree_map(lambda t: torch.empty(
+            t.shape, dtype=t.dtype, device="meta"), full)
+        params = CV.shard_tree(full, specs, mesh, dev)
+        del full
+        return TS.train_state_from_params(params, tc), specs, shapes
+
+    def batches():
+        data = iter(TokenPipeline(vocab=cfg.vocab, seq_len=DIST["seq"],
+                                  batch_per_agent=DIST["batch_per_agent"],
+                                  n_agents=A, seed=0))
+        b0 = next(data)
+        bspecs = TS.batch_specs(b0, rules, mesh)
+        yield CV.shard_tree(b0, bspecs, mesh, dev)
+        for b in data:
+            yield CV.shard_tree(b, bspecs, mesh, dev)
+
+    def whole_norms(state, specs):
+        """Per leaf: the f32 norm of this rank's agent's memory, then of its
+        parameters, over every model rank's shards."""
+        split = [_spec_split(s) for s in TR.leaves(specs)]
+        accs = TR.leaves(memory_of(state))
+        sq = [torch.sum(torch.square(a[:, 0].float())) for a in accs]
+        sq += [torch.sum(torch.square(p[0].float()))
+               for p in TR.leaves(state.params)]
+        sq = torch.stack([s if (sp or m_rank == 0) else s * 0
+                          for s, sp in zip(sq, split + split)])
+        return torch.sqrt(comm.all_reduce_sum(sq, model)).cpu().tolist()
+
+    def run(steps, timed=False, tc=tc):
+        """``steps`` steps from a fresh state: (state, specs, shapes,
+        losses, norms, ms, [(step's clip norm, the spec tree's norm)])."""
+        state, specs, shapes = fresh(tc)
+        split = [_spec_split(s) for s in TR.leaves(specs)]
+        clips = []
+        real_clip = TS.clip_by_global_norm
+
+        def spy(tree, max_norm, norm=None):
+            sq = sum(torch.sum(torch.square(g.float()))
+                     for g, sp in zip(TR.leaves(tree), split)
+                     if sp or m_rank == 0)
+            torch.distributed.all_reduce(sq)     # not the step's: uncounted
+            clips.append((float(norm), float(torch.sqrt(sq))))
+            return real_clip(tree, max_norm, norm)
+
+        TS.clip_by_global_norm = spy
+        try:
+            with SH.use_rules(rules, mesh):
+                step = TS.make_train_step(cfg, tc, A)
+            losses, norms, ms = [], [], []
+            data = batches()
+            ctx = comm.timed() if timed else contextlib.nullcontext()
+            with ctx:
+                for _ in range(steps):
+                    b = next(data)
+                    t0 = time.perf_counter()
+                    with SH.use_rules(rules, mesh):
+                        state, met = step(state, b)
+                    if on_card:
+                        torch.cuda.synchronize(dev)
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                    losses.append(met["agent_loss"].float().cpu().tolist())
+                    norms.append(whole_norms(state, specs))
+        finally:
+            TS.clip_by_global_norm = real_clip
+        return state, specs, shapes, losses, norms, ms, clips
+
+    def gathered_vs(state, specs, shapes, ref):
+        """This agent's gathered parameters against the stacked run's:
+        (the most bf16 ulps, the share of elements that differ, whether
+        the replicated leaves are bit-equal across model ranks, the leaves
+        with elements past DIST_ULPS of their own magnitude)."""
+        worst_ulps, share, replicated_equal = 0.0, 0.0, True
+        over = {}
+        for path, got, spec, shape, want in zip(
+                SH.flatten_with_paths(shapes), TR.leaves(state.params),
+                TR.leaves(specs), TR.leaves(shapes), ref["params"]):
+            parts = comm.all_gather(got.contiguous(), model)  # (m, 1, ...)
+            if _spec_split(spec):
+                whole = torch.empty((1,) + tuple(shape.shape[1:]),
+                                    dtype=got.dtype, device=dev)
+                sizes = {"data": 1, "model": parts.shape[0]}
+                for m in range(parts.shape[0]):
+                    sl = SH.local_slice(whole.shape, spec, sizes,
+                                        {"data": 0, "model": m})
+                    whole[sl] = parts[m]
+            else:
+                replicated_equal &= bool(torch.equal(parts[0], parts[-1]))
+                whole = parts[0]
+            a, b = whole[0].float(), want.to(dev).float()
+            d = (a - b).abs()
+            rms = torch.sqrt(torch.mean(b * b))
+            worst_ulps = max(worst_ulps, float((d / (torch.maximum(
+                b.abs(), rms) * 2.0 ** -7)).max()))
+            share = max(share, float((d > 0).float().mean()))
+            own = d / (b.abs() * 2.0 ** -7).clamp(min=1e-30)
+            n_over = int((own > DIST_ULPS).sum())
+            if n_over:
+                i = int(own.argmax())
+                over[path] = {"elements_over": n_over,
+                              "got": float(a.flatten()[i]),
+                              "want": float(b.flatten()[i]),
+                              "max_abs_diff": float(d.max()),
+                              "leaf_rms": float(rms)}
+        return worst_ulps, share, replicated_equal, over
+
+    def held(losses, norms, clips, ref, n):
+        ok_l, err_l = close_np(losses, ref["losses"][:n], DIST_LOSS_TOL)
+        ok_s, err_s = close_np(norms, [a[d_rank] for a in
+                                       ref["acc_norms"][:n]],
+                               DIST_STATE_TOL)
+        ok_c, err_c = close_np([c[0] for c in clips], [c[1] for c in clips],
+                               TP_NORM_TOL)
+        return ok_l and ok_s and ok_c, {"max_abs_loss_diff": err_l,
+                                        "max_abs_state_norm_diff": err_s,
+                                        "max_abs_clip_norm_diff": err_c}
+
+    warm_s = time.perf_counter() - t_start
+    ref = torch.load(os.path.join(ref_dir, f"ref{d_rank}.pt"))
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    torch.distributed.barrier()
+    KU.reset_launches()
+    comm.reset_counts()
+    n = TP["steps"]
+    state, specs, shapes, losses, norms, ms, clips = run(n, timed=True)
+    launches = dict(ops.LAUNCHES)
+    groups = {g: {op: dict(c) for op, c in ops_.items()}
+              for g, ops_ in comm.GROUP_COUNTS.items()}
+    peak = torch.cuda.max_memory_allocated(dev) if on_card else 0
+    ok, errs = held(losses, norms, clips, ref, n)
+    worst_ulps, share, replicated_equal, over = gathered_vs(
+        state, specs, shapes, ref)
+    p_leaves = TR.leaves(state.params)
+    one_agent = sum(int(np.prod(s.shape[1:])) * s.element_size() * (
+        1 + tc.K * 4 // s.element_size()) for s in TR.leaves(shapes))
+    mine = sum(t.numel() * t.element_size() for t in p_leaves) + sum(
+        t.numel() * t.element_size() for t in TR.leaves(memory_of(state)))
+    n_leaves = len(p_leaves)
+    del state
+    if on_card:
+        torch.cuda.empty_cache()
+    planted = {}
+    real_mlp, real_counted = L.mlp, TS.model_counted
+    k = TP["planted_steps"]
+    for name in ("row_parallel_reduce_skipped_in_layer0",
+                 "clip_norm_counts_replicated_leaves_on_every_model_rank"):
+        try:
+            if name.startswith("row"):
+                L.mlp = _row_parallel_skipped_in_layer0(real_mlp)
+            else:
+                TS.model_counted = lambda *a, **kw: [True] * len(
+                    real_counted(*a, **kw))
+            _, _, _, p_losses, p_norms, _, p_clips = run(k)
+        finally:
+            L.mlp, TS.model_counted = real_mlp, real_counted
+        p_ok, p_errs = held(p_losses, p_norms, p_clips, ref, k)
+        planted[name] = {"passes_the_check": p_ok, **p_errs}
+        if on_card:
+            torch.cuda.empty_cache()
+    # exact memory on the local shards, against the stacked exact run
+    while not os.path.exists(os.path.join(tmp, "ref_exact_ready")):
+        time.sleep(0.05)
+    ref_x = torch.load(os.path.join(tmp, f"ref_exact{d_rank}.pt"))
+    kx = TP["exact_steps"]
+    KU.reset_launches()
+    state, specs, shapes, x_losses, x_norms, x_ms, x_clips = run(
+        kx, tc=tc_exact)
+    x_launches = dict(ops.LAUNCHES)
+    x_ok, x_errs = held(x_losses, x_norms, x_clips, ref_x, kx)
+    x_ulps, x_share, x_same, x_over = gathered_vs(state, specs, shapes,
+                                                  ref_x)
+    del state
+    exact = {"held": x_ok, **x_errs, "losses": x_losses, "ms_per_step": x_ms,
+             "param_max_ulps": x_ulps, "param_share_differing": x_share,
+             "param_elements_over_ulps_of_own_magnitude": x_over,
+             "replicated_bit_equal": x_same, "launches": x_launches}
+    res = {"rank": rank, "coords": coords, "losses": losses,
+           "clip_norms": clips, "ms_per_step": ms,
+           # the first step warms the kernels and gloo's buffers up
+           "median_ms_per_step": statistics.median(ms[1:] or ms),
+           "held": ok, **errs, "param_max_ulps": worst_ulps,
+           "param_elements_over_ulps_of_own_magnitude": over,
+           "param_share_differing": share,
+           "replicated_bit_equal": replicated_equal,
+           "state_bytes": mine, "one_agent_state_bytes": one_agent,
+           "launches": launches, "n_leaves": n_leaves, "groups": groups,
+           "peak_bytes": peak, "planted": planted, "exact": exact,
+           "start_s": warm_s,
+           "seconds": time.perf_counter() - t_start}
+    with open(os.path.join(tmp, f"train{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def tp_serve_run(dev, dtype: str, mesh=None, planted: bool = False,
+                 steps: int = TP_SERVE["steps"]) -> dict:
+    """The serving units of TP_SERVE in ``dtype``: in one process (``mesh``
+    None) or on this rank's shards under ``serve_rules`` on ``mesh``.  The
+    prefill's last logits, then ``steps`` decode steps (``decode_step``'s
+    logits beside ``make_serve_step``'s tokens; greedy in f32, a fixed
+    token stream in bf16), every output gathered whole."""
+    import numpy as np
+    import torch
+    from repro_torch import convert as CV
+    from repro_torch.distributed import comm
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.models import attention as AT
+    from repro_torch.models import decode as D
+    from repro_torch.models import transformer as TM
+    from repro_torch.serving import engine as E
+    from repro_torch.training import train_step as TS
+
+    cfg = tp_config(TP_SERVE["n_layers"], dtype)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    full = TM.init_params(gen, cfg, (), dev)
+    rng = np.random.default_rng(0)
+    Bp, S = TP_SERVE["prefill"]
+    B = TP_SERVE["batch"]
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab, (Bp, S)),
+                             device=dev)
+    stream = torch.as_tensor(rng.integers(0, cfg.vocab, (steps, B, 1)),
+                             device=dev)
+    V = cfg.vocab
+
+    def rules(batch):
+        return None if mesh is None else TS.serve_rules(cfg, False, batch,
+                                                        mesh)
+
+    def whole(t, shape):
+        if mesh is None:
+            return t
+        return SH.gather(t.contiguous(), SH.P(None, "model"), mesh, shape)
+
+    params = full if mesh is None else CV.shard_tree(
+        full, TS.param_specs(full, rules(B), mesh, False), mesh, dev)
+    del full
+    sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" \
+        else (lambda: None)
+    out = {}
+    real = AT._partial_scale
+    if planted:
+        AT._partial_scale = lambda m, m_all: torch.ones_like(m)
+    try:
+        with torch.no_grad():
+            with SH.use_rules(rules(Bp), mesh):
+                sync()
+                t0 = time.perf_counter()
+                lg = E.make_prefill(cfg)(params, {"tokens": prompt})
+                sync()
+                out["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+            out["prefill"] = whole(lg, (Bp, V)).float().cpu()
+            cache = D.init_cache(cfg, B, TP_SERVE["max_len"], device=dev)
+            if mesh is not None:
+                r = rules(B)
+                cache = CV.shard_tree(cache, TS.cache_specs(cache, r, mesh),
+                                      mesh, dev)
+            step = E.make_serve_step(cfg)
+            tok, logits, toks, ms = stream[0], [], [], []
+            ar = {"calls": 0, "bytes": 0}            # the serve steps'
+            with SH.use_rules(rules(B), mesh):
+                for t in range(steps):
+                    lg, _ = D.decode_step(params, cache, tok, t, cfg)
+                    sync()
+                    before = dict(comm.COUNTS["all_reduce"])
+                    t0 = time.perf_counter()
+                    nxt, cache = step(params, cache, tok, t)
+                    sync()
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                    for k in ar:
+                        ar[k] += comm.COUNTS["all_reduce"][k] - before[k]
+                    logits.append(whole(lg[:, -1], (B, V)).float().cpu())
+                    toks.append(nxt[:, 0].cpu())
+                    tok = nxt if dtype == "float32" else stream[
+                        min(t + 1, steps - 1)]
+            out["decode_all_reduce_per_step"] = {k: v / steps
+                                                 for k, v in ar.items()}
+    finally:
+        AT._partial_scale = real
+    out["logits"] = torch.stack(logits)
+    out["tokens"] = torch.stack(toks)
+    out["decode_ms"] = ms
+    return out
+
+
+def _tp_serve_rank(rank: int, world: int, tmp: str, device: str) -> None:
+    """One of the two serving ranks: both dtypes, then the planted fault;
+    rank 0 saves the gathered outputs to ``tmp/serve.pt``."""
+    import torch
+    from repro_torch.device import set_full_precision
+    from repro_torch.launch import mesh as ML
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    set_full_precision()
+    mesh = ML.make_host_mesh(TP_SERVE["mesh"][1])
+    res = {dt: tp_serve_run(dev, dt, mesh) for dt in ("float32",
+                                                       "bfloat16")}
+    res["planted"] = tp_serve_run(dev, "float32", mesh, planted=True,
+                                  steps=TP_SERVE["planted_steps"])
+    res["peak_bytes"] = (torch.cuda.max_memory_allocated(dev)
+                         if dev.type == "cuda" else 0)
+    if rank == 0:
+        torch.save(res, os.path.join(tmp, "serve.pt"))
+
+
+def row_parallel_gemm(dev) -> dict:
+    """One model rank's row-parallel GEMM at the train run's MLP down
+    projection (2 x 4096 tokens, half of d_ff against d_model), bf16
+    operands: the f32 result the layer takes (the GEMM's own accumulator)
+    against the product of f32 copies, by CUDA events on a quiet card."""
+    import torch
+    from repro_torch.models import layers as L
+
+    cfg = tp_config(DIST["n_layers"])
+    n = DIST["batch_per_agent"] * DIST["seq"]
+    k = cfg.d_ff // TP["mesh"][1]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    h = torch.randn((n, k), generator=gen, device=dev).to(torch.bfloat16)
+    w = (torch.randn((k, cfg.d_model), generator=gen, device=dev)
+         * k ** -0.5).to(torch.bfloat16)
+    got = L._MatmulF32Out.apply(h, w)
+    want = h.float() @ w.float()
+    err = float((got - want).abs().max())
+    check(err <= 1e-4 * float(want.abs().max()),
+          f"row-parallel GEMM: f32-out bf16 product {err} from the f32 one")
+    flops = 2 * n * k * cfg.d_model
+    out = {"m_k_n": [n, k, cfg.d_model], "max_abs_err_vs_f32": err,
+           "bf16_f32_out_ms": cuda_ms(lambda: L._MatmulF32Out.apply(h, w)),
+           "f32_copies_ms": cuda_ms(lambda: h.float() @ w.float()),
+           "flops": flops}
+    del h, w, got, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def tensor_parallel_phase(dev, ref_dir: str) -> dict:
+    """Tensor-parallel training and serving of h2o-danube-1.8b on the card
+    (module docstring): four train ranks against the distributed phase's
+    stacked run in ``ref_dir`` (then exact memory against a stacked exact
+    run) and two serving ranks against the one-process units; this
+    process runs the stacked exact run and the one-process units
+    meanwhile; the planted faults must fail."""
+    import numpy as np
+    import torch
+    from repro_torch import tree as TR
+    from repro_torch.distributed import comm
+    from repro_torch.kernels import frodo_update as KU
+    from repro_torch.kernels import ops
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    torch.cuda.empty_cache()
+    n_train = TP["mesh"][0] * TP["mesh"][1]
+    n_serve = TP_SERVE["mesh"][0] * TP_SERVE["mesh"][1]
+    ctxs = []
+    for fn, n, args in ((_tp_train_rank, n_train, (tmp, ref_dir, str(dev))),
+                        (_tp_serve_rank, n_serve, (tmp, str(dev)))):
+        store = os.path.join(tmp, fn.__name__)
+        os.makedirs(store)
+        ctxs.append(comm.spawn(fn, n, *args, backend="gloo",
+                               store_dir=store, join=False))
+    try:
+        # the stacked exact run the ranks' exact steps are held against
+        KU.reset_launches()
+        x_state, x_losses, x_norms, _, x_mem = dist_run(
+            dist_trainer(dev, None, memory_mode="exact", T=TP["exact_T"]),
+            TP["exact_steps"])
+        stacked_exact = dict(ops.LAUNCHES)
+        clip = DIST["grad_clip"] * DIST["agents"] ** 0.5
+        check(all(v > clip for v in x_norms),
+              f"exact: the clip does not bind at every step: {x_norms}")
+        check(bool(np.isfinite(x_losses).all()),
+              f"stacked exact losses not finite: {x_losses}")
+        flat = TR.leaves(x_state.params)
+        for a in range(DIST["agents"]):
+            torch.save({"losses": x_losses, "acc_norms": x_mem,
+                        "params": [t[a].cpu() for t in flat]},
+                       os.path.join(tmp, f"ref_exact{a}.pt"))
+        del x_state, flat
+        torch.cuda.empty_cache()
+        open(os.path.join(tmp, "ref_exact_ready"), "w").close()
+        ref = {dt: tp_serve_run(dev, dt) for dt in ("float32", "bfloat16")}
+        torch.cuda.empty_cache()
+        for ctx in ctxs:
+            while not ctx.join():
+                pass
+    finally:
+        for ctx in ctxs:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.terminate()
+                proc.join()
+    gemm = row_parallel_gemm(dev)
+    ranks = []
+    for r in range(n_train):
+        with open(os.path.join(tmp, f"train{r}.json")) as f:
+            ranks.append(json.load(f))
+    emit("tensor_parallel.ranks", ranks=[
+        {k: v for k, v in r.items() if k not in ("groups",)}
+        for r in ranks])
+    for r in ranks:
+        tag = f"tensor_parallel rank {r['rank']} {r['coords']}"
+        check(r["held"], f"{tag}: against the stacked run: loss "
+                         f"{r['max_abs_loss_diff']}, state norms "
+                         f"{r['max_abs_state_norm_diff']}, clip norm "
+                         f"{r['max_abs_clip_norm_diff']}")
+        check(r["param_max_ulps"] <= DIST_ULPS,
+              f"{tag}: parameters {r['param_max_ulps']} bf16 ulps from the "
+              f"stacked run's")
+        check(r["replicated_bit_equal"],
+              f"{tag}: replicated leaves differ across model ranks")
+        check(r["state_bytes"] <= TP_STATE_SHARE * r["one_agent_state_bytes"],
+              f"{tag}: state {r['state_bytes']} bytes against one agent's "
+              f"{r['one_agent_state_bytes']}")
+        check(r["launches"] == {"frodo_exact_update": 0,
+                                "frodo_expsum_update": r["n_leaves"]
+                                * TP["steps"]},
+              f"{tag}: launches {r['launches']}")
+        x = r["exact"]
+        check(x["held"], f"{tag} exact: against the stacked exact run: loss "
+                         f"{x['max_abs_loss_diff']}, history norms "
+                         f"{x['max_abs_state_norm_diff']}, clip norm "
+                         f"{x['max_abs_clip_norm_diff']}")
+        check(x["param_max_ulps"] <= DIST_ULPS,
+              f"{tag} exact: parameters {x['param_max_ulps']} bf16 ulps "
+              f"from the stacked exact run's")
+        check(x["replicated_bit_equal"],
+              f"{tag} exact: replicated leaves differ across model ranks")
+        check(x["launches"] == {"frodo_exact_update": r["n_leaves"]
+                                * TP["exact_steps"],
+                                "frodo_expsum_update": 0},
+              f"{tag} exact: launches {x['launches']}")
+    for name in ranks[0]["planted"]:
+        check(not all(r["planted"][name]["passes_the_check"] for r in ranks),
+              f"planted {name} passed the check on every rank")
+    serve = torch.load(os.path.join(tmp, "serve.pt"))
+    f32, b16 = serve["float32"], serve["bfloat16"]
+    ok_p, err_p = close_np(f32["prefill"], ref["float32"]["prefill"],
+                           TP_SERVE_TOL)
+    ok_l, err_l = close_np(f32["logits"], ref["float32"]["logits"],
+                           TP_SERVE_TOL)
+    check(ok_p and ok_l, f"tensor_parallel serving f32: prefill {err_p}, "
+                         f"decode {err_l} against the one-process units")
+    check(torch.equal(f32["tokens"], ref["float32"]["tokens"]),
+          "tensor_parallel serving f32: tokens differ")
+    lim = DVF_TOL[LLM_ARCH]["bfloat16"]
+    err_bp = float((b16["prefill"] - ref["bfloat16"]["prefill"]).abs().max())
+    err_bl = float((b16["logits"] - ref["bfloat16"]["logits"]).abs().max())
+    check(err_bp <= lim and err_bl <= lim,
+          f"tensor_parallel serving bf16: prefill {err_bp}, decode {err_bl} "
+          f"(limit {lim})")
+    k = TP_SERVE["planted_steps"]
+    ok_x, err_x = close_np(serve["planted"]["logits"],
+                           ref["float32"]["logits"][:k], TP_SERVE_TOL)
+    check(not ok_x, "planted combine_without_max_rescale passed the check")
+    steps = TP["steps"]
+    per_rank = []
+    for r in ranks:
+        by_group = {g: {"all_reduce_ms_per_step":
+                        c.get("all_reduce", {}).get("ms", 0.0) / steps,
+                        "all_reduce_bytes_per_step":
+                        c.get("all_reduce", {}).get("bytes", 0) / steps,
+                        "all_reduce_calls_per_step":
+                        c.get("all_reduce", {}).get("calls", 0) / steps}
+                    for g, c in r["groups"].items()}
+        per_rank.append({
+            "rank": r["rank"], "coords": r["coords"],
+            "median_ms_per_step": r["median_ms_per_step"],
+            "ms_per_step": r["ms_per_step"], "by_group": by_group,
+            "peak_bytes": r["peak_bytes"],
+            "state_bytes": r["state_bytes"],
+            "state_share_of_one_agent": r["state_bytes"]
+            / r["one_agent_state_bytes"],
+            "expsum_launches": r["launches"]["frodo_expsum_update"],
+            "max_abs_loss_diff": r["max_abs_loss_diff"],
+            "max_abs_state_norm_diff": r["max_abs_state_norm_diff"],
+            "max_abs_clip_norm_diff": r["max_abs_clip_norm_diff"],
+            "param_max_ulps": r["param_max_ulps"],
+            "param_share_differing": r["param_share_differing"],
+            "param_elements_over_ulps_of_own_magnitude":
+                r["param_elements_over_ulps_of_own_magnitude"],
+            "planted": r["planted"], "exact": r["exact"],
+            "start_s": r["start_s"], "seconds": r["seconds"]})
+    emit("tensor_parallel", nvidia_smi=nvidia_smi(), arch=LLM_ARCH,
+         train={"mesh": TP["mesh"], "n_layers": DIST["n_layers"],
+                "seq": DIST["seq"], "agents": DIST["agents"],
+                "batch_per_agent": DIST["batch_per_agent"], "K": DIST["K"],
+                "acc_dtype": "float32", "grad_clip": DIST["grad_clip"],
+                "steps": steps, "reduced": TP_REDUCED,
+                "stacked_reference": "the distributed phase's",
+                "exact": {"T": TP["exact_T"], "steps": TP["exact_steps"],
+                          "stacked_losses": x_losses,
+                          "stacked_grad_norm": x_norms},
+                "per_rank": per_rank},
+         serve={"mesh": TP_SERVE["mesh"], "n_layers": TP_SERVE["n_layers"],
+                "batch": TP_SERVE["batch"], "prefill": TP_SERVE["prefill"],
+                "steps": TP_SERVE["steps"], "max_len": TP_SERVE["max_len"],
+                "reduced": TP_SERVE_REDUCED,
+                "f32": {"prefill_max_abs_err": err_p,
+                        "decode_max_abs_err": err_l, "tokens_equal": True,
+                        "prefill_ms": f32["prefill_ms"],
+                        "one_process_prefill_ms":
+                            ref["float32"]["prefill_ms"],
+                        "median_decode_ms": statistics.median(
+                            f32["decode_ms"][1:]),
+                        "one_process_median_decode_ms": statistics.median(
+                            ref["float32"]["decode_ms"][1:]),
+                        "decode_all_reduce_per_step":
+                            f32["decode_all_reduce_per_step"]},
+                "bf16": {"prefill_max_abs_err": err_bp,
+                         "decode_max_abs_err": err_bl, "limit": lim,
+                         "median_decode_ms": statistics.median(
+                             b16["decode_ms"][1:]),
+                         "one_process_median_decode_ms": statistics.median(
+                             ref["bfloat16"]["decode_ms"][1:])},
+                "planted_combine_without_max_rescale": {
+                    "passes_the_check": ok_x, "max_abs_err": err_x},
+                "peak_bytes_rank0": serve["peak_bytes"]},
+         row_parallel_gemm=gemm,
+         tol={"loss": DIST_LOSS_TOL, "param_bf16_ulps": DIST_ULPS,
+              "state_norms": DIST_STATE_TOL, "clip_norm": TP_NORM_TOL,
+              "state_share": TP_STATE_SHARE, "serve_f32": TP_SERVE_TOL,
+              "serve_bf16_max_abs": lim},
+         seconds=time.perf_counter() - t_phase)
+    total = {k: sum(r["launches"][k] for r in ranks)
+             for k in ranks[0]["launches"]}
+    total_x = {k: sum(r["exact"]["launches"][k] for r in ranks)
+               for k in ranks[0]["exact"]["launches"]}
+    return {"launches": {"tensor_parallel_4ranks": total,
+                         "tensor_parallel_stacked_exact": stacked_exact,
+                         "tensor_parallel_exact_4ranks": total_x},
+            "per_rank_expsum": [r["launches"]["frodo_expsum_update"]
+                                for r in ranks],
+            "per_rank_exact": [r["exact"]["launches"]["frodo_exact_update"]
+                               for r in ranks]}
 
 
 def main() -> int:
@@ -2982,7 +3696,10 @@ def main() -> int:
     regress_phase(dev, tmp)
     launches_abl = ablations_phase(dev, tmp)
     harness_phase(dev, dryrun_dir, tmp)
-    dist_launches = distributed_phase(dev)["launches"]
+    dist = distributed_phase(dev)
+    dist_launches = dist["launches"]
+    tp = tensor_parallel_phase(dev, dist["ref_dir"])
+    dist_launches.update(tp["launches"])
     per_path = {name: {"exp2": launches_exp2[name],
                        "exp1_point": launches_exp1[name],
                        "exp3": launches_exp3[name],
@@ -3167,6 +3884,7 @@ def main() -> int:
          "max_abs_err": exact_err["float32"],
          "shape": [T] + list(EXP2_LEAVES["w0"]), "dtype": "float32",
          **{k: ex[k] for k in keys}, "llm_bf16_at_embed": llm["exact"],
+         "tensor_parallel_launches_per_rank": tp["per_rank_exact"],
          "bench": bench_rows(bench, "exact")},
         {"name": "frodo_expsum_update", "route": "cuda", "source": src,
          "replaces": "src/repro/kernels/frodo_update.py:93",
@@ -3180,6 +3898,7 @@ def main() -> int:
          "llm_vlm_audio_largest_leaves": vla["kernels"],
          "llm_hybrid_largest_leaf": hyb["kernels"],
          "llm_bf16g_k4_bf16acc_at_embed": hyb["expsum_k4_at_embed"],
+         "tensor_parallel_launches_per_rank": tp["per_rank_expsum"],
          "bench": bench_rows(bench, "expsum")},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -20,7 +20,7 @@ the state it was given is consumed.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, NamedTuple, Optional
+from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -71,10 +71,14 @@ class FrodoConfig:
             raise ValueError(f"bad acc_dtype {self.acc_dtype!r}")
 
 
-def frodo(cfg: FrodoConfig) -> Optimizer:
+def frodo(cfg: FrodoConfig,
+          counted: Optional[Sequence[bool]] = None) -> Optimizer:
+    """``counted``: per param leaf, whether this process counts it in the
+    ``collect_metrics`` norms (``obs.metrics.tree_sq_sum``); None counts
+    every leaf."""
     if cfg.memory_mode == "exact":
-        return _frodo_exact(cfg)
-    return _frodo_expsum(cfg)
+        return _frodo_exact(cfg, counted)
+    return _frodo_expsum(cfg, counted)
 
 
 class _PerDevice:
@@ -100,7 +104,7 @@ def _new_state(step: int, key: str, buffers, cfg: FrodoConfig, device):
 
 # ------------------------------------------------------------------ exact
 
-def _frodo_exact(cfg: FrodoConfig) -> Optimizer:
+def _frodo_exact(cfg: FrodoConfig, counted=None) -> Optimizer:
     T_buf = max(cfg.pad_T, cfg.T)
     w = np.zeros(T_buf)
     w[:cfg.T] = fmem.mu_weights(cfg.T, cfg.lam, cfg.exponent_scale)
@@ -137,7 +141,7 @@ def _frodo_exact(cfg: FrodoConfig) -> Optimizer:
                      "hist": TR.unflatten(treedef, hists)}
         if collect:
             new_state["metrics"] = obs_metrics.frodo_step_metrics_sq(
-                grads, M_sq, delta)
+                grads, M_sq, delta, counted)
         return delta, new_state
 
     return Optimizer(init, update)
@@ -145,7 +149,7 @@ def _frodo_exact(cfg: FrodoConfig) -> Optimizer:
 
 # ---------------------------------------------------------------- expsum
 
-def _frodo_expsum(cfg: FrodoConfig) -> Optimizer:
+def _frodo_expsum(cfg: FrodoConfig, counted=None) -> Optimizer:
     rates_np, coeffs_np = fmem.fit_expsum(cfg.T, cfg.lam, cfg.K,
                                           cfg.exponent_scale)
     rates = _PerDevice(torch.tensor(rates_np, dtype=torch.float32))
@@ -183,7 +187,7 @@ def _frodo_expsum(cfg: FrodoConfig) -> Optimizer:
                      "acc": TR.unflatten(treedef, accs)}
         if collect:
             new_state["metrics"] = obs_metrics.frodo_step_metrics_sq(
-                grads, M_sq, delta)
+                grads, M_sq, delta, counted)
         return delta, new_state
 
     return Optimizer(init, update)

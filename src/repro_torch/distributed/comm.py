@@ -13,6 +13,17 @@ backend.
 A ``group`` argument is a ``ProcessGroup``, ``None`` (the default group)
 or a ``(DeviceMesh, dim name)`` pair, which names the mesh dimension's
 group.
+
+Tensor parallelism over the ``model`` axis uses two autograd functions:
+``copy_to_model`` (forward identity, backward the gradient's all-reduce)
+at the entry of a region whose work is split over the group, and on every
+replicated parameter used inside it; ``reduce_from_model`` (forward an
+all-reduce in f32, rounded once to the input's dtype; backward identity)
+at its exit.  ``all_reduce_max`` serves the vocab-split log-sum-exp and
+argmax.
+
+On the ``meta`` device (the dry-run's shape-only steps) an op is counted
+and not issued: its result has the right shape and no values.
 """
 from __future__ import annotations
 
@@ -26,11 +37,18 @@ import torch
 import torch.distributed as dist
 
 OPS = ("all_reduce", "all_gather", "send_recv")
+#: each op's kind in the JAX package's partitioned HLO (the dry-run's names)
+HLO_KIND = {"all_reduce": "all-reduce", "all_gather": "all-gather",
+            "send_recv": "collective-permute"}
 
 #: per op: calls, bytes (each rank's input), ms (host clock, only while
 #: ``timed()`` is active: a device sync before and after each call) and
 #: the calls staged through host memory
 COUNTS: Dict[str, Dict[str, float]] = {}
+#: the same per group: ``{label: {op: {calls, bytes, ms}}}``, the label
+#: the mesh dimension's name of a ``(DeviceMesh, name)`` group, "world"
+#: for the default group, else "group"
+GROUP_COUNTS: Dict[str, Dict[str, Dict[str, float]]] = {}
 _timing = [False]
 
 
@@ -38,6 +56,14 @@ def reset_counts() -> None:
     COUNTS.clear()
     COUNTS.update({op: {"calls": 0, "bytes": 0, "ms": 0.0, "staged": 0}
                    for op in OPS})
+    GROUP_COUNTS.clear()
+
+
+def hlo_counts() -> Dict[str, Dict[str, float]]:
+    """``COUNTS`` of the ops called at least once, by HLO kind:
+    ``{kind: {"calls", "bytes"}}``."""
+    return {HLO_KIND[op]: {"calls": c["calls"], "bytes": c["bytes"]}
+            for op, c in COUNTS.items() if c["calls"]}
 
 
 reset_counts()
@@ -53,11 +79,21 @@ def timed():
         _timing[0] = prev
 
 
+def _label(group: Any) -> str:
+    if isinstance(group, tuple):
+        return group[1]
+    return "world" if group is None else "group"
+
+
 @contextlib.contextmanager
-def _counted(op: str, t: torch.Tensor, staged: bool):
+def _counted(op: str, t: torch.Tensor, staged: bool, label: str = "group"):
     c = COUNTS[op]
-    c["calls"] += 1
-    c["bytes"] += t.numel() * t.element_size()
+    g = GROUP_COUNTS.setdefault(label, {}).setdefault(
+        op, {"calls": 0, "bytes": 0, "ms": 0.0})
+    n = t.numel() * t.element_size()
+    for d in (c, g):
+        d["calls"] += 1
+        d["bytes"] += n
     c["staged"] += int(staged)
     if not _timing[0]:
         yield
@@ -69,7 +105,9 @@ def _counted(op: str, t: torch.Tensor, staged: bool):
     yield
     if sync:
         torch.cuda.synchronize(t.device)
-    c["ms"] += (time.perf_counter() - t0) * 1e3
+    ms = (time.perf_counter() - t0) * 1e3
+    c["ms"] += ms
+    g["ms"] += ms
 
 
 def resolve_group(group: Any):
@@ -92,19 +130,75 @@ def _staged(group, t: torch.Tensor) -> bool:
     return t.is_cuda and dist.get_backend(group) == "gloo"
 
 
+def _all_reduce(t: torch.Tensor, group: Any, op) -> torch.Tensor:
+    label, group = _label(group), resolve_group(group)
+    with _counted("all_reduce", t, False, label):
+        if not t.is_meta:
+            dist.all_reduce(t, op=op, group=group)
+    return t
+
+
 def all_reduce_sum(t: torch.Tensor, group: Any = None) -> torch.Tensor:
     """Sum ``t`` over the group's ranks, in place; returns it."""
-    group = resolve_group(group)
-    with _counted("all_reduce", t, False):
-        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
-    return t
+    return _all_reduce(t, group, dist.ReduceOp.SUM)
+
+
+def all_reduce_max(t: torch.Tensor, group: Any = None) -> torch.Tensor:
+    """The elementwise max of ``t`` over the group's ranks, in place;
+    returns it."""
+    return _all_reduce(t, group, dist.ReduceOp.MAX)
+
+
+def _sum_f32(t: torch.Tensor, group: Any) -> torch.Tensor:
+    """``t`` summed over the group in f32 (into a new tensor), rounded
+    once to ``t``'s dtype."""
+    return all_reduce_sum(t.to(torch.float32, copy=True), group).to(t.dtype)
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum_f32(g, ctx.group), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _sum_f32(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_model(x: torch.Tensor, group: Any) -> torch.Tensor:
+    """Identity forward; the backward sums the gradient over the group (in
+    f32): the entry of a region whose ranks each take a part of the work
+    on the same ``x``, or a replicated parameter used inside one."""
+    return _CopyToModel.apply(x, group)
+
+
+def reduce_from_model(x: torch.Tensor, group: Any) -> torch.Tensor:
+    """The sum of every rank's ``x`` over the group, in f32 and rounded
+    once to ``x``'s dtype; the backward passes the gradient through (every
+    rank holds all of it)."""
+    return _ReduceFromModel.apply(x, group)
 
 
 def all_gather(t: torch.Tensor, group: Any = None) -> torch.Tensor:
     """Every rank's ``t``, stacked in rank order: ``(world,) + t.shape``."""
-    group = resolve_group(group)
+    label, group = _label(group), resolve_group(group)
+    if t.is_meta:
+        with _counted("all_gather", t, False, label):
+            return t.new_empty((dist.get_world_size(group),)
+                               + tuple(t.shape))
     staged = _staged(group, t)
-    with _counted("all_gather", t, staged):
+    with _counted("all_gather", t, staged, label):
         # gloo has no all_gather for CUDA tensors: through host memory
         src = t.detach().cpu() if staged else t.detach().contiguous()
         out = src.new_empty((dist.get_world_size(group),) + tuple(t.shape))
@@ -116,10 +210,13 @@ def shift(t: torch.Tensor, k: int, group: Any = None) -> torch.Tensor:
     """Rank ``(r - k) % world``'s ``t``: every rank sends its own to rank
     ``(r + k) % world`` (one ``batch_isend_irecv``; the counterpart of a
     ``ppermute`` by k)."""
-    group = resolve_group(group)
+    label, group = _label(group), resolve_group(group)
     w, r = dist.get_world_size(group), dist.get_rank(group)
+    if t.is_meta:
+        with _counted("send_recv", t, False, label):
+            return torch.empty_like(t)
     staged = _staged(group, t)
-    with _counted("send_recv", t, staged):
+    with _counted("send_recv", t, staged, label):
         # gloo has no send/recv for CUDA tensors: through host memory
         src = t.detach().cpu() if staged else t.detach().contiguous()
         out = torch.empty_like(src)

@@ -15,9 +15,10 @@ turns one into ``torch.distributed`` DTensor placements on a
 from __future__ import annotations
 
 import contextlib
+import functools
 import re
 import threading
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -74,6 +75,23 @@ def current_rules() -> Optional[Dict[str, Any]]:
 
 def current_mesh():
     return getattr(_ctx, "mesh", None)
+
+
+def bound(fn):
+    """``fn``, run under the rules and mesh active now wherever it is
+    called: a function that ``torch.utils.checkpoint`` recomputes in the
+    backward, which autograd runs in a thread of its own on a CUDA device
+    (where this thread's context is not set).  ``fn`` itself when none is
+    active."""
+    rules, mesh = current_rules(), current_mesh()
+    if rules is None and mesh is None:
+        return fn
+
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        with use_rules(rules, mesh):
+            return fn(*args, **kwargs)
+    return run
 
 
 def mesh_axis_sizes(mesh) -> Dict[str, int]:
@@ -241,3 +259,119 @@ def unflatten_with_paths(flat: Dict[str, Any]) -> Any:
             d = d.setdefault(p, {})
         d[parts[-1]] = v
     return root
+
+
+# ------------------------------------------------- tensor-parallel context
+# Under ``use_rules(rules, mesh)`` with a ``DeviceMesh`` whose "model" axis
+# is wider than 1, the models run tensor-parallel: every rank holds its
+# local shard of each leaf (``local_slice`` of the leaf's spec) and reads
+# its place on the mesh here, as the JAX models read ``current_mesh()``.
+
+class ModelAxis(NamedTuple):
+    group: Any           # ``(mesh, "model")``: a ``distributed.comm`` group
+    size: int
+    rank: int            # this rank's coordinate on the axis
+
+
+def model_axis() -> Optional[ModelAxis]:
+    """The active mesh's "model" axis when rules and a mesh are active and
+    it is wider than 1, else None (every model runs as on one device)."""
+    mesh = current_mesh()
+    if current_rules() is None or mesh is None:
+        return None
+    m = mesh_axis_sizes(mesh).get("model", 1)
+    if m == 1:
+        return None
+    return ModelAxis((mesh, "model"), m, mesh.get_local_rank("model"))
+
+
+def mesh_coords(mesh) -> Dict[str, int]:
+    """This rank's coordinate on each axis of ``mesh``."""
+    return dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+
+
+def axes_of(p: Any) -> Tuple[str, ...]:
+    """The mesh axes of one spec entry (a name, a tuple or None)."""
+    if p is None:
+        return ()
+    return tuple(p) if isinstance(p, (tuple, list)) else (p,)
+
+
+def axes_group(mesh, axes: Sequence[str]):
+    """A ``distributed.comm`` group over the ranks that differ only in
+    ``axes``: ``(mesh, name)`` for one axis, the default group for every
+    axis of a mesh that spans it, a flattened sub-mesh's group otherwise."""
+    axes = tuple(axes)
+    if len(axes) == 1:
+        return (mesh, axes[0])
+    if set(axes) == set(mesh.mesh_dim_names):
+        return None
+    return mesh[axes]._flatten().get_group()
+
+
+def split_index(p: Any, sizes: Dict[str, int],
+                coords: Dict[str, int]) -> Tuple[int, int]:
+    """(this rank's block, the number of blocks) of a dim whose spec entry
+    is ``p``: split over its axes major first, as a JAX ``NamedSharding``
+    lays it out."""
+    idx, n = 0, 1
+    for a in axes_of(p):
+        idx = idx * sizes[a] + coords[a]
+        n *= sizes[a]
+    return idx, n
+
+
+def local_slice(shape: Sequence[int], spec: Sequence[Any],
+                sizes: Dict[str, int], coords: Dict[str, int]) -> tuple:
+    """The index (one slice per dim) of the local shard at mesh ``coords``
+    of an array of ``shape`` under ``spec`` (sanitized: each entry's axes
+    divide their dim); the index JAX's ``NamedSharding(mesh, spec)
+    .devices_indices_map(shape)`` gives the device at those coordinates."""
+    parts = tuple(spec) + (None,) * (len(shape) - len(spec))
+    out = []
+    for dim, p in zip(shape, parts):
+        idx, n = split_index(p, sizes, coords)
+        if dim % n:
+            raise ValueError(f"{p} ({n} blocks) does not divide a dim of "
+                             f"{dim}")
+        out.append(slice(idx * dim // n, (idx + 1) * dim // n))
+    return tuple(out)
+
+
+def gather(local: torch.Tensor, spec: Sequence[Any], mesh,
+           shape: Sequence[int]) -> torch.Tensor:
+    """The whole tensor of ``shape`` from every rank's ``local`` shard
+    under ``spec`` (an all-gather over the default group, which the mesh
+    spans; for checks, not for a step)."""
+    from repro_torch.distributed import comm
+
+    parts = comm.all_gather(local.contiguous(), None)
+    sizes = mesh_axis_sizes(mesh)
+    ranks = mesh.mesh
+    out = local.new_empty(tuple(shape))
+    for r in range(parts.shape[0]):
+        pos = (ranks == r).nonzero()[0].tolist()
+        coords = dict(zip(mesh.mesh_dim_names, pos))
+        out[local_slice(shape, spec, sizes, coords)] = parts[r]
+    return out
+
+
+class SeqSplit(NamedTuple):
+    group: Any           # a ``distributed.comm`` group over the split
+    index: int           # this rank's span, 0..n-1
+    n: int
+
+
+def kv_seq_split() -> Optional[SeqSplit]:
+    """How the active rules split a decode cache's sequence slots
+    ("kv_seq") over the active mesh, when they do; else None.  A cache
+    under them is split so (its length divisible by ``n``)."""
+    mesh, rules = current_mesh(), current_rules()
+    if mesh is None or rules is None:
+        return None
+    axes = axes_of(rules.get("kv_seq"))
+    sizes = mesh_axis_sizes(mesh)
+    idx, n = split_index(axes, sizes, mesh_coords(mesh)) if axes else (0, 1)
+    if n == 1:
+        return None
+    return SeqSplit(axes_group(mesh, axes), idx, n)

@@ -1,10 +1,11 @@
-"""Roofline of one NVIDIA H100 per (arch x shape), from the port's dry-run
-records (``repro_torch.launch.dryrun``, in ``experiments/dryrun_torch``):
-the port of the JAX package's ``benchmarks/roofline.py``.
+"""Roofline of NVIDIA H100s per (arch x shape x mesh), from the port's
+dry-run records (``repro_torch.launch.dryrun``, in
+``experiments/dryrun_torch``): the port of the JAX package's
+``benchmarks/roofline.py``.
 
-    compute term = exec_FLOPs / peak_FLOPs          [s]
-    memory term  = HBM_bytes  / HBM_bw              [s]
-    link term    = 0: one card moves nothing over a link
+    compute term = exec_FLOPs / (cards * peak_FLOPs)                  [s]
+    memory term  = HBM_bytes  / (cards * HBM_bw)                      [s]
+    link term    = collective_effective_bytes_per_device / LINK_BW    [s]
 
 Constants: NVIDIA's H100 SXM5 data sheet, dense bf16 without sparsity,
 for the card ``nvidia-smi`` names ``NVIDIA H100 80GB HBM3`` at its full
@@ -15,11 +16,19 @@ closed-form counts of ``repro_torch.utils.flops``, and so are the bytes
 analysis to read, where the JAX roofline takes the larger of the two.
 Memory per card is the dry-run's argument bytes (parameters, gradients,
 optimizer state, batch or cache), or the probe's extrapolated peak where
-that is larger.  The dry-run's production-mesh records (spec trees and
-per-device bytes, no FLOPs) are skipped.  The link term waits for the
-models to run tensor-parallel: the JAX dry-run reads it from the
-collectives of XLA's partitioned HLO, and the port has no tensor-parallel
-model execution to count them from yet.
+that is larger.
+
+The link term is the counterpart of the JAX roofline's one link figure:
+the collective bytes a device moves per step (the dry-run's count of the
+tensor-parallel step's collectives, extrapolated affine in depth, times
+the ring factors) over ``LINK_BW``, NVLink 4's 450 GB/s in one direction
+(NVIDIA's H100 SXM5 data sheet: 900 GB/s bidirectional).  That rate holds
+within one 8-card NVLink node; the production meshes' model axis of 16
+spans two nodes and crosses InfiniBand, far slower, so there the term is
+a lower bound.  A one-card record moves nothing over a link (0); a mesh
+record without a collective record (the families and rules that do not
+run tensor-parallel yet) has no link term, and its bound is the larger of
+the other two.
 
     PYTHONPATH=src python -m repro_torch.experiments.roofline \\
         --dir experiments/dryrun_torch --out experiments/roofline_torch.md
@@ -36,10 +45,12 @@ PEAK_FLOPS = 989.4e12        # dense bf16, H100 SXM5
 HBM_BW = 3.35e12             # bytes/s, HBM3
 HBM_PER_CARD = 80e9          # bytes
 CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
-CHIPS = {"1xH100": 1}
-LINK_NOTE = ("link term 0: a one-card record moves nothing over NVLink; "
-             "the collective record comes with tensor-parallel model "
-             "execution")
+LINK_BW = 450e9               # bytes/s, NVLink 4, one direction
+CHIPS = {"1xH100": 1, "16x16": 256, "2x16x16": 512}
+LINK_NOTE = (f"link term: collective bytes per card / "
+             f"{LINK_BW / 1e9:.0f} GB/s NVLink 4 (a lower bound where the "
+             f"16-wide model axis crosses InfiniBand; 0 on one card; n/a "
+             f"without a collective record)")
 
 
 def load_records(dirpath: str = "experiments/dryrun_torch") -> List[Dict]:
@@ -58,6 +69,19 @@ def mem_per_card_bytes(rec: Dict) -> float:
     return max(mem, float(peak)) if peak is not None else mem
 
 
+def link_term(rec: Dict) -> Optional[float]:
+    """Seconds a step's collectives take over NVLink at ``LINK_BW``: 0 for
+    a one-card record, None for a mesh record without a collective
+    record."""
+    if rec["mesh"] == "1xH100":
+        return 0.0
+    if not rec.get("collectives"):
+        return None
+    ext = rec.get("extrapolated") or {}
+    return ext.get("collective_effective_bytes_per_device",
+                   rec["collectives"]["effective_bytes_per_device"]) / LINK_BW
+
+
 def roofline_terms(rec: Dict) -> Optional[Dict]:
     if rec.get("status") != "ok" or rec["mesh"] not in CHIPS:
         return None
@@ -69,11 +93,13 @@ def roofline_terms(rec: Dict) -> Optional[Dict]:
 
     t_compute = exec_flops / (chips * PEAK_FLOPS)
     t_memory = hbm_bytes / (chips * HBM_BW)
-    t_link = 0.0
-    dominant = max((("compute", t_compute), ("memory", t_memory),
-                    ("link", t_link)), key=lambda kv: kv[1])[0]
+    t_link = link_term(rec)
+    terms = [("compute", t_compute), ("memory", t_memory)]
+    if t_link is not None:
+        terms.append(("link", t_link))
+    dominant = max(terms, key=lambda kv: kv[1])[0]
     mem_dev = mem_per_card_bytes(rec)
-    bound = max(t_compute, t_memory, t_link)
+    bound = max(t for _, t in terms)
     return {
         "arch": rec["arch"], "shape": rec["shape"], "mesh": rec["mesh"],
         "kind": rec["kind"],
@@ -120,7 +146,8 @@ def markdown_table(terms: List[Dict], card: str = CARD) -> str:
         rows.append(
             f"| {t['arch']} | {t['shape']} | {t['mesh']} "
             f"| {t['t_compute_s']:.3e} | {t['t_memory_s']:.3e} "
-            f"| {t['t_link_s']:.3e} | **{t['dominant']}** "
+            f"| {'n/a' if t['t_link_s'] is None else format(t['t_link_s'], '.3e')} "
+            f"| **{t['dominant']}** "
             f"| {t['useful_ratio']:.2f} | {t['mem_per_dev_gib']:.1f} "
             f"| {'y' if t['fits_hbm'] else 'N'} | {t['mfu_bound']:.2f} |")
     return hdr + "\n".join(rows)

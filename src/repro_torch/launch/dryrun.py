@@ -39,15 +39,31 @@ record holds ``n_agents`` (``train_step.n_agents_for``), the ``rules``
 value as its ``str``) and ``memory``: the per-device argument bytes, each
 leaf's local shard under the sanitized specs of the JAX dry-run's
 ``in_shardings`` (train state and batch; parameters and batch; parameters,
-cache and tokens), summed by part.  The collective schedule and the
-roofline's link term need the models run tensor-parallel (the JAX package
-reads them from XLA's partitioned HLO) and are not recorded.  Records are
-JSON files in ``--out`` (``experiments/dryrun_torch``); the one-card ones
-are read by ``repro_torch.experiments.roofline``.
+cache and tokens), summed by part, and ``analytic`` as in the one-card
+record.
+
+The collective record: where the port runs the (arch, shape) tensor-
+parallel (the dense family with GQA; train only without the fsdp rule),
+rank 0's step of the shape's unit (``make_train_step``, ``make_prefill``,
+``make_serve_step``) runs at the shape's full size on ``meta`` tensors
+(its local shards under the specs) under the rules and the mesh, and
+``distributed.comm`` counts each collective it would issue: at full depth
+(``collectives``: ``bytes_by_kind``, ``counts`` and
+``effective_bytes_per_device`` under the JAX dry-run's HLO kind names and
+its ring factors ``COLL_FACTOR``) and at scan trip counts 2 and 3,
+extrapolated affine in L (``extrapolated.collective_bytes_by_kind`` and
+``collective_effective_bytes_per_device``), as the JAX dry-run reads them
+from XLA's partitioned HLO.  The train unit is ``TRAIN_CONFIG`` with the
+update's plain version (a kernel takes no meta tensor; it issues no
+collective).  Every other record holds ``collectives: null`` and a
+``collectives_reason``.  Records are JSON files in ``--out``
+(``experiments/dryrun_torch``), read by
+``repro_torch.experiments.roofline``.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import time
@@ -56,15 +72,18 @@ from typing import Any, Dict, Optional, Sequence, Union
 
 import torch
 
+from repro_torch import convert as CV
 from repro_torch import tree as TR
 from repro_torch.configs import registry as REG
 from repro_torch.configs.base import INPUT_SHAPES, InputShape, ModelConfig
 from repro_torch.data.synthetic import TokenPipeline, augment_modalities
 from repro_torch.device import Device, resolve_device, set_full_precision
+from repro_torch.distributed import comm
 from repro_torch.distributed import sharding as SH
 from repro_torch.launch import mesh as ML
 from repro_torch.models import decode as D
 from repro_torch.models import transformer as T
+from repro_torch.serving import engine as E
 from repro_torch.training import train_step as TS
 from repro_torch.utils import flops as FL
 
@@ -176,6 +195,120 @@ def mesh_memory(cfg: ModelConfig, shape: InputShape, mesh, multi_pod: bool,
     return out
 
 
+#: effective bytes moved per participating device, as a multiple of an
+#: op's per-device bytes: the JAX dry-run's ring model
+COLL_FACTOR = {"all-gather": 1.0, "all-reduce": 2.0, "reduce-scatter": 1.0,
+               "all-to-all": 1.0, "collective-permute": 1.0}
+
+
+def collectives_reason(cfg: ModelConfig, shape: InputShape) -> Optional[str]:
+    """None where the port runs (cfg, shape) tensor-parallel and so can
+    count its collectives; else why there is no collective record."""
+    if cfg.family != "dense" or cfg.attn_type == "mla":
+        kind = "MLA" if cfg.attn_type == "mla" else f"the {cfg.family} family"
+        return (f"tensor-parallel execution of {kind} waits for ROADMAP "
+                f"queue 1 item 5.1; no collectives to count")
+    if shape.kind == "train" and cfg.fsdp:
+        return ("training under the fsdp rule waits for ROADMAP queue 1 "
+                "item 5.1; no collectives to count")
+    return None
+
+
+def run_unit(cfg: ModelConfig, shape: InputShape, mesh, multi_pod: bool,
+             tc: TS.TrainConfig, device) -> None:
+    """One step of ``shape``'s unit on this rank's local shards at the
+    shape's full size, under its rules on ``mesh``: random parameters and
+    zero tokens on ``device``, or shapes alone on ``meta``.  Every rank of
+    the mesh calls it (on ``meta`` in a ``fake`` world only rank 0 runs)."""
+    gen = (torch.Generator(device=device).manual_seed(0)
+           if torch.device(device).type != "meta" else torch.Generator())
+
+    def local_batch(batch, specs):
+        return CV.shard_tree(TR.tree_map(lambda t: torch.zeros(
+            t.shape, dtype=t.dtype, device=device), batch), specs, mesh,
+            device)
+
+    if shape.kind == "train":
+        n_agents = TS.n_agents_for(cfg, mesh, multi_pod)
+        rules = TS.build_rules(cfg, multi_pod)
+        full = TS.init_train_state(gen, cfg, tc, n_agents, device)
+        specs = TS.train_state_specs(full, cfg, rules, mesh)
+        state = TS.TrainState(
+            CV.shard_tree(full.params, specs.params, mesh, device),
+            CV.shard_tree(full.opt_state, specs.opt_state, mesh, device), 0)
+        del full
+        batch = REG.input_specs(cfg, shape, n_agents)
+        batch = local_batch(batch, TS.batch_specs(batch, rules, mesh))
+        with SH.use_rules(rules, mesh):
+            TS.make_train_step(cfg, tc, n_agents)(state, batch)
+        return
+    rules = TS.serve_rules(cfg, multi_pod, shape.global_batch, mesh)
+    full = T.init_params(gen, cfg, (), device)
+    params = CV.shard_tree(full, TS.param_specs(full, rules, mesh,
+                                                agent_stacked=False),
+                           mesh, device)
+    del full
+    batch = REG.input_specs(cfg, shape)
+    batch = local_batch(batch, TS.batch_specs_serve(batch, rules, mesh))
+    with torch.no_grad(), SH.use_rules(rules, mesh):
+        if shape.kind == "prefill":
+            E.make_prefill(cfg)(params, batch)
+            return
+        window = REG.decode_window(cfg, shape)
+        cache = D.init_cache(cfg, shape.global_batch, shape.seq_len, window,
+                             device=device)
+        cache = CV.shard_tree(cache, TS.cache_specs(cache, rules, mesh),
+                              mesh, device)
+        E.make_serve_step(cfg, window)(params, cache, batch["tokens"],
+                                       shape.seq_len - 1)
+
+
+def count_collectives(cfg: ModelConfig, shape: InputShape, mesh,
+                      multi_pod: bool, tc: TS.TrainConfig,
+                      device="meta") -> Dict[str, Any]:
+    """``run_unit``'s collectives on this rank: ``{"bytes_by_kind",
+    "counts", "effective_bytes_per_device"}`` (the JAX dry-run's record)."""
+    comm.reset_counts()
+    run_unit(cfg, shape, mesh, multi_pod, tc, device)
+    got = comm.hlo_counts()
+    per_kind = {k: float(v["bytes"]) for k, v in got.items()}
+    return {"bytes_by_kind": per_kind,
+            "counts": {k: int(v["calls"]) for k, v in got.items()},
+            "effective_bytes_per_device": sum(
+                COLL_FACTOR[k] * v for k, v in per_kind.items())}
+
+
+def _affine_collectives(c2: Dict[str, Any], c3: Dict[str, Any],
+                        L: int) -> Dict[str, Any]:
+    """The JAX dry-run's ``extrapolated.collective_*``: bytes by kind at
+    trip counts 2 and 3, affine in L."""
+    coll = {}
+    for k in set(c2["bytes_by_kind"]) | set(c3["bytes_by_kind"]):
+        f2 = c2["bytes_by_kind"].get(k, 0.0)
+        b = c3["bytes_by_kind"].get(k, 0.0) - f2
+        coll[k] = max(f2 - 2 * b + b * L, 0.0)
+    return {"collective_bytes_by_kind": coll,
+            "collective_effective_bytes_per_device": sum(
+                COLL_FACTOR[k] * v for k, v in coll.items())}
+
+
+def collective_record(cfg: ModelConfig, shape: InputShape, mesh,
+                      multi_pod: bool, tc: TS.TrainConfig) -> Dict[str, Any]:
+    """``collectives`` and ``extrapolated`` of one record (see the module
+    docstring), or ``collectives: None`` and a ``collectives_reason``."""
+    reason = collectives_reason(cfg, shape)
+    if reason is not None:
+        return {"collectives": None, "collectives_reason": reason}
+    tc = dataclasses.replace(tc, use_kernel=False)
+    L = REG.scan_trip_count(cfg)
+    probes = {k: count_collectives(REG.reduced_layers(cfg, k), shape, mesh,
+                                   multi_pod, tc) for k in (2, 3)}
+    return {"collectives": count_collectives(cfg, shape, mesh, multi_pod,
+                                             tc),
+            "extrapolated": {"trip_count": L, **_affine_collectives(
+                probes[2], probes[3], L)}}
+
+
 def run_mesh(archs: Sequence[str], shapes: Sequence[str], multi_pod: bool,
              out_dir: Optional[str] = None,
              tc: Optional[TS.TrainConfig] = None) -> list:
@@ -201,6 +334,17 @@ def run_mesh(archs: Sequence[str], shapes: Sequence[str], multi_pod: bool,
                         rec.update(mesh_memory(cfg, shape, mesh, multi_pod,
                                                tc))
                         rec["count_s"] = round(time.time() - t0, 3)
+                        window = REG.decode_window(cfg, shape) or 0
+                        rec["analytic"] = FL.analytic(cfg, shape, shape.kind,
+                                                      window, remat=tc.remat)
+                        rec["analytic"]["hbm_bytes"] = FL.hbm_bytes(
+                            cfg, shape, shape.kind,
+                            n_agents=rec.get("n_agents", 1), K=tc.K,
+                            window=window)
+                        t1 = time.time()
+                        rec.update(collective_record(cfg, shape, mesh,
+                                                     multi_pod, tc))
+                        rec["collectives_s"] = round(time.time() - t1, 3)
                         rec["status"] = "ok"
                     except Exception as e:  # noqa: BLE001 — keep sweeping
                         rec["status"] = "error"
@@ -356,9 +500,12 @@ def run_one(arch: str, shape: Union[str, InputShape],
 def _emit(rec: Dict[str, Any], out_dir: Optional[str]):
     line = (f"[{rec['status']:7s}] {rec['arch']:22s} {rec['shape']:12s} "
             f"{rec['mesh']:8s}")
-    if rec["status"] == "ok" and "analytic" not in rec:
+    if rec["status"] == "ok" and "devices" in rec:
         mem = rec["memory"]["argument_size_in_bytes"]
         line += f" args/device={mem / 2 ** 30:.3f}GiB"
+        coll = rec.get("collectives")
+        line += (f" coll/dev={coll['effective_bytes_per_device'] / 2 ** 30:.3f}"
+                 f"GiB" if coll else " coll=null")
     elif rec["status"] == "ok":
         mem = rec["memory"]["argument_size_in_bytes"]
         line += (f" exec_flops={rec['analytic']['exec_flops']:.3e}"

@@ -12,6 +12,17 @@ like with like.  One-token decode reads and writes a KV cache, a ring buffer
 of window size under a sliding window; it takes one position per row, so
 rows at different depths (continuous batching) share one call.
 
+Tensor-parallel over the "model" axis (``distributed.sharding
+.model_axis``), GQA runs on local heads: q over "heads", k and v over
+"kv_heads" (or whole, where the axis does not divide the kv heads: each
+local q head then takes kv group ``h // (H/G)`` of its global index h),
+and the output projection's partial sums all-reduced
+(``layers.row_parallel``).  Decode under
+``serve_rules`` holds the cache split over its sequence slots ("kv_seq"),
+every kv head on each rank: q and the new k and v are gathered for all
+heads, each rank attends to its own span of slots, and the partial
+softmaxes are combined by all-reduces of (max, sum, weighted values).
+
 MLA (multi-head latent attention, minicpm3) trains in the naive form, the
 latent expanded into per-head K and V, and decodes in the absorbed form
 against a cache of the latent alone; the two round differently in bf16.
@@ -25,6 +36,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import comm
+from repro_torch.distributed import sharding as SH
 from repro_torch.models import layers as L
 
 NEG_INF = -1e30
@@ -110,6 +123,9 @@ def _blockwise_attn(q, k, v, q_pos, k_pos, causal, window, chunk,
     if G != H:
         k = torch.repeat_interleave(k, H // G, dim=2)
         v = torch.repeat_interleave(v, H // G, dim=2)
+    if q.is_meta:
+        # shapes alone (the dry-run's steps): one chunk, no positions read
+        chunk = max(Sq, Sk)
     cq = min(chunk, Sq)
     ck = min(chunk, Sk)
     nq, nk = Sq // cq, Sk // ck
@@ -121,7 +137,7 @@ def _blockwise_attn(q, k, v, q_pos, k_pos, causal, window, chunk,
     qp = q_pos.reshape(nq, cq)
     kp = k_pos.reshape(nk, ck)
     scale = 1.0 / np.sqrt(hd)
-    skip = block_skip and (causal or window > 0)
+    skip = block_skip and (causal or window > 0) and not q.is_meta
     if skip:
         ranges = torch.cat([qp.amin(1), qp.amax(1), kp.amin(1),
                             kp.amax(1)]).tolist()
@@ -152,10 +168,46 @@ def _blockwise_attn(q, k, v, q_pos, k_pos, causal, window, chunk,
     return out.to(v.dtype)
 
 
+def _tp_params(params, cfg: ModelConfig):
+    """(the model axis, the attention's params with every replicated leaf
+    through ``comm.copy_to_model``, whether k/v are whole) when the
+    heads are split over the model axis here, else (None, params,
+    None)."""
+    tp = L.split_axis(params["wq"]["w"].shape[-2], cfg.n_heads)
+    if tp is None:
+        return None, params, None
+    kv_whole = params["wk"]["w"].shape[-2] == cfg.n_kv_heads
+    if not kv_whole and (params["wk"]["w"].shape[-2] * tp.size
+                         != cfg.n_kv_heads):
+        raise ValueError("kv heads split other than over the model axis")
+    # a replicated leaf used on split heads: each rank's part of its
+    # gradient, summed over the axis
+    out = dict(params)
+    for name in ("q_norm", "k_norm") + (("wk", "wv") if kv_whole else ()):
+        if name in params:
+            out[name] = {k: comm.copy_to_model(v, tp.group)
+                         for k, v in params[name].items()}
+    return tp, out, kv_whole
+
+
+def _local_kv_groups(k, v, tp: SH.ModelAxis, H_loc: int, cfg: ModelConfig):
+    """Whole k/v (…, G, hd) -> the group of each local q head (…, H_loc,
+    hd): global head h takes group h // (H/G)."""
+    groups = torch.div(tp.rank * H_loc + torch.arange(H_loc,
+                                                      device=k.device),
+                       cfg.n_heads // cfg.n_kv_heads, rounding_mode="floor")
+    return k.index_select(-2, groups), v.index_select(-2, groups)
+
+
 def self_attention(params, x, positions, cfg: ModelConfig,
                    causal: bool = True, window: int = 0) -> torch.Tensor:
     """Full-sequence self-attention (train / prefill)."""
+    tp, params, kv_whole = _tp_params(params, cfg)
+    if tp is not None:
+        x = comm.copy_to_model(x, tp.group)
     q, k, v = _project_qkv(params, x, positions, cfg)
+    if kv_whole:
+        k, v = _local_kv_groups(k, v, tp, q.shape[-2], cfg)
     S = x.shape[-2]
     if S <= cfg.attn_direct_max:
         bias = _mask_bias(positions, positions, causal, window)
@@ -167,7 +219,11 @@ def self_attention(params, x, positions, cfg: ModelConfig,
                  else positions)
         o = _blockwise_attn(q, k, v, pos1d, pos1d, causal, window,
                             cfg.attn_chunk)
-    return torch.einsum("...hk,hkd->...d", o, params["wo"]["w"])
+    if tp is None:
+        return torch.einsum("...hk,hkd->...d", o, params["wo"]["w"])
+    wo = params["wo"]["w"]
+    return L.row_parallel(o.reshape(o.shape[:-2] + (-1,)),
+                          wo.reshape(-1, wo.shape[-1]), tp)
 
 
 # ----------------------------------------------------------------- decode
@@ -219,6 +275,86 @@ def decode_context(pos: torch.Tensor, cache_len: int, cfg: ModelConfig,
         torch.where(valid, zero, torch.full_like(zero, NEG_INF)))
 
 
+def _tp_decode_attention(params, x, cache: KVCache, cfg: ModelConfig,
+                         ctx: DecodeContext, tp: SH.ModelAxis,
+                         seq: Optional[SH.SeqSplit]):
+    """``decode_attention`` with the heads split over the model axis and
+    the cache's slots over ``seq`` (every kv head on each rank): q and the
+    new k/v are gathered for all heads (one all-reduce of a zero-padded
+    buffer), each rank writes the new slot when it holds it and attends to
+    its own span, and the partial softmaxes are combined."""
+    B, _, d = x.shape
+    H, G, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd()
+    H_loc, G_loc = params["wq"]["w"].shape[-2], params["wk"]["w"].shape[-2]
+    x2 = x.view(B, d)
+    q = (x2 @ params["wq"]["w"].reshape(d, H_loc * hd)).view(B, 1, H_loc, hd)
+    k_new = (x2 @ params["wk"]["w"].reshape(d, G_loc * hd)).view(
+        B, 1, G_loc, hd)
+    v_new = (x2 @ params["wv"]["w"].reshape(d, G_loc * hd)).view(
+        B, 1, G_loc, hd)
+    if cfg.qk_norm:
+        q = L.rmsnorm_nd(params["q_norm"]["scale"], q, cfg.norm_eps)
+        k_new = L.rmsnorm_nd(params["k_norm"]["scale"], k_new, cfg.norm_eps)
+    q = L.apply_rope(q, None, cfg.rope_theta, cfg.rope_fraction, ctx.rope)
+    k_new = L.apply_rope(k_new, None, cfg.rope_theta, cfg.rope_fraction,
+                         ctx.rope)
+    # every head's q, k and v: each rank fills its own heads of a zeroed
+    # buffer (k and v only where they are split), summed over the axis
+    parts = [(q, H)] + ([] if G_loc == G else [(k_new, G), (v_new, G)])
+    width = sum(n for _, n in parts)
+    buf = torch.zeros((B, width, hd), dtype=torch.float32, device=x.device)
+    off = 0
+    for t, n in parts:
+        m = t.shape[2]
+        buf[:, off + tp.rank * m:off + (tp.rank + 1) * m] = t[:, 0]
+        off += n
+    buf = comm.all_reduce_sum(buf, tp.group).to(x.dtype)
+    q = buf[:, :H]
+    if G_loc != G:
+        k_new, v_new = buf[:, H:H + G], buf[:, H + G:]
+    else:
+        k_new, v_new = k_new[:, 0], v_new[:, 0]
+    # the new slot, written by the rank whose span holds it (the others
+    # write back what they hold)
+    S_loc = cache.k.shape[1]
+    lo = 0 if seq is None else seq.index * S_loc
+    local = ctx.slot - lo
+    own = ((local >= 0) & (local < S_loc))[:, None, None]
+    idx = (ctx.rows, local.clamp(0, S_loc - 1))
+    k = cache.k.index_put(idx, torch.where(own, k_new.to(cache.k.dtype),
+                                           cache.k[idx]))
+    v = cache.v.index_put(idx, torch.where(own, v_new.to(cache.v.dtype),
+                                           cache.v[idx]))
+    qg = q.reshape(B, G, H // G, hd)                         # (b, g, r, h)
+    s = torch.matmul(qg, k.permute(0, 2, 3, 1)).float()      # (b, g, r, t)
+    s = s / np.sqrt(hd) + ctx.bias[:, None, None, lo:lo + S_loc]
+    m = s.amax(dim=-1)                                       # (b, g, r)
+    if seq is not None:
+        m_all = comm.all_reduce_max(m.clone(), seq.group)
+    else:
+        m_all = m
+    p = torch.exp(s - m[..., None])
+    acc = torch.matmul(p.to(v.dtype), v.transpose(1, 2)).float()
+    if seq is not None:
+        scale = _partial_scale(m, m_all)
+        packed = torch.cat([(p.sum(dim=-1) * scale)[..., None],
+                            acc * scale[..., None]], dim=-1)
+        packed = comm.all_reduce_sum(packed, seq.group)
+        l, acc = packed[..., 0], packed[..., 1:]
+    else:
+        l = p.sum(dim=-1)
+    o = (acc / l[..., None]).to(v.dtype).reshape(B, H, hd)
+    o = o[:, tp.rank * H_loc:(tp.rank + 1) * H_loc].reshape(B, H_loc * hd)
+    out = L.row_parallel(o, params["wo"]["w"].reshape(H_loc * hd, d), tp)
+    return out.view(B, 1, d), KVCache(k, v)
+
+
+def _partial_scale(m: torch.Tensor, m_all: torch.Tensor) -> torch.Tensor:
+    """The factor that puts a span's softmax terms, taken against its own
+    max ``m``, on the common max ``m_all``."""
+    return torch.exp(m - m_all)
+
+
 def decode_attention(params, x, cache: KVCache, pos: torch.Tensor,
                      cfg: ModelConfig, ctx: DecodeContext):
     """One-token decode.  x: (B,1,d); pos: (B,) the position of each row;
@@ -226,6 +362,10 @@ def decode_attention(params, x, cache: KVCache, pos: torch.Tensor,
     a step's layers.  Returns (out (B,1,d), new cache); ``cache`` is not
     written, so a caller can keep the old bytes of rows it does not
     advance."""
+    tp = L.split_axis(params["wq"]["w"].shape[-2], cfg.n_heads)
+    if tp is not None:
+        return _tp_decode_attention(params, x, cache, cfg, ctx, tp,
+                                    SH.kv_seq_split())
     # the products as plain matmuls on views: one token a row makes the
     # host's dispatch the step's cost, and an einsum dispatches several
     # reshapes per product

@@ -30,6 +30,11 @@ where the reference drops them.  With one position per row the reference
 routes each row alone, where a token's k distinct experts always fit, so
 the capacity is raised to at least B and no row drops.  Every function
 returns a new cache and leaves the one it was given as it was.
+
+Under ``serve_rules`` on a mesh with a "model" axis wider than 1, the
+dense family (GQA) decodes tensor-parallel (``attention.decode_attention``)
+on each rank's local shards: the cache split as ``cache_specs`` lays it
+out (its slots over "kv_seq"), the logits this rank's vocab columns.
 """
 from __future__ import annotations
 
@@ -39,6 +44,7 @@ import torch
 
 from repro_torch import tree as TR
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding as SH
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
@@ -126,7 +132,7 @@ def _dense_decode_block(bp, c, x, pos, cfg, ctx, per_row: bool):
                            min_capacity=x.shape[0] if per_row else 0,
                            with_aux=False)
         return x + h, c
-    return x + L.mlp(bp["mlp"], h, cfg.activation), c
+    return x + L.mlp(bp["mlp"], h, cfg.activation, cfg.d_ff), c
 
 
 def _audio_decode_block(bp, c, x, pos, cfg, ctx):
@@ -232,10 +238,11 @@ def decode_step(params, cache, tokens: torch.Tensor, pos: Position,
                 cfg: ModelConfig, window_override: Optional[int] = None):
     """tokens: (B, 1) int; pos: the current position, an int for every row
     or one per row (B,).  Returns (logits (B,1,V) float32, new cache)."""
+    T.require_tp_support(cfg)
     window = cfg.window if window_override is None else window_override
     per_row = isinstance(pos, torch.Tensor) and pos.dim() == 1
     pos = _row_positions(pos, tokens.shape[0], tokens.device)
-    x = L.embed(params["embed"], tokens)
+    x = L.embed(params["embed"], tokens, cfg.vocab)
     new_cache = dict(cache)
     if cfg.family == "audio":
         x, new_cache["blocks"] = _audio_decode(params, cache["blocks"], x,
@@ -248,6 +255,9 @@ def decode_step(params, cache, tokens: torch.Tensor, pos: Position,
                 return _ssm_step(bp, c, h, cfg)
         else:
             cache_len = TR.leaves(cache["blocks"])[0].shape[2]
+            seq = SH.kv_seq_split() if SH.model_axis() else None
+            if seq is not None:        # this rank's span of the slots
+                cache_len *= seq.n
             ctx = (A.mla_decode_context if cfg.attn_type == "mla"
                    else A.decode_context)(pos, cache_len, cfg, window)
 
@@ -258,10 +268,7 @@ def decode_step(params, cache, tokens: torch.Tensor, pos: Position,
                 x, new_cache[name] = _scan_over(params[name], cache[name],
                                                 fn, x)
     x = L.rmsnorm(params["ln_f"], x, cfg.norm_eps)
-    logits = (L.unembed(params["embed"], x, cfg.logit_softcap)
-              if cfg.tie_embeddings
-              else L.lm_head(params["lm_head"], x, cfg.logit_softcap))
-    return logits, new_cache
+    return T.head(params, x, cfg), new_cache
 
 
 # ----------------------------------------------------- prefill + ragged decode

@@ -5,6 +5,17 @@ nested dicts of tensors; every layer is a pair of functions (init(gen, ...)
 -> params, apply(params, x, ...) -> y), with the JAX package's parameter
 names and layouts.
 
+Under an active mesh whose "model" axis is wider than 1
+(``distributed.sharding.model_axis``) the MLP, the embedding and the heads
+run tensor-parallel on local shards, as the JAX package's ``shard``
+annotations lay them out: the MLP's up/gate split over "mlp" (column
+parallel) and its down projection's partial sums, each taken in f32,
+all-reduced in f32 and rounded once (row parallel), the embedding and the
+heads split over "vocab".  A layer reads whether its leaf is split from
+the leaf's local size against the full one (a dim the axis does not divide
+stays whole, as ``sanitize_specs`` leaves it); with no such axis every
+path is the one-device path.
+
 Inits draw from a ``torch.Generator``.  They cannot reproduce
 ``jax.random``'s numbers; tests that compare the two packages carry the JAX
 package's initial weights across (``repro_torch.convert``).
@@ -12,10 +23,14 @@ package's initial weights across (``repro_torch.convert``).
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from repro_torch.distributed import comm
+from repro_torch.distributed import sharding as SH
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
@@ -171,14 +186,72 @@ def mlp_init(gen, d_model: int, d_ff: int, gated: bool, dtype,
     return p
 
 
-def mlp(params: dict, x: torch.Tensor, act_name: str) -> torch.Tensor:
+def split_axis(local: int, full: Optional[int]) -> Optional[SH.ModelAxis]:
+    """The model axis when a dim of ``full`` elements is split over it
+    here (its local size is smaller), else None."""
+    if full is None or local == full:
+        return None
+    tp = SH.model_axis()
+    if tp is None or local * tp.size != full:
+        raise ValueError(f"a local dim of {local} of {full} under "
+                         f"{'no model axis' if tp is None else tp.size}")
+    return tp
+
+
+class _MatmulF32Out(torch.autograd.Function):
+    """``h @ w`` of two 2-D bf16/f16 operands with the GEMM's f32
+    accumulator as the result, unrounded (``torch.mm``'s ``out_dtype``,
+    which the CUDA and meta backends have and autograd lacks); the
+    backward's products in the operands' dtype."""
+
+    @staticmethod
+    def forward(ctx, h, w):
+        ctx.save_for_backward(h, w)
+        return torch.mm(h, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        h, w = ctx.saved_tensors
+        g = g.to(h.dtype)
+        return (g @ w.t() if ctx.needs_input_grad[0] else None,
+                h.t() @ g if ctx.needs_input_grad[1] else None)
+
+
+def row_parallel(h: torch.Tensor, w: torch.Tensor,
+                 tp: SH.ModelAxis) -> torch.Tensor:
+    """``h @ w`` of this rank's part of the contracted (last) dim of
+    ``h``, summed over the model axis: each rank's partial product kept
+    in f32 (a bf16 GEMM's own f32 accumulator; the CPU, which has no such
+    GEMM, multiplies f32 copies), the sum in f32, rounded once to ``h``'s
+    dtype."""
+    x = h.reshape(-1, h.shape[-1])
+    w = w.to(h.dtype)
+    if h.dtype == torch.float32:
+        part = x @ w
+    elif h.device.type == "cpu":
+        part = x.float() @ w.float()
+    else:
+        part = _MatmulF32Out.apply(x, w)
+    part = part.reshape(tuple(h.shape[:-1]) + (w.shape[-1],))
+    return comm.reduce_from_model(part, tp.group).to(h.dtype)
+
+
+def mlp(params: dict, x: torch.Tensor, act_name: str,
+        d_ff: Optional[int] = None) -> torch.Tensor:
+    """``d_ff``: the full hidden width, which tells a split hidden from a
+    whole one (None: whole)."""
     act = activation(act_name)
+    tp = split_axis(params["up"]["w"].shape[-1], d_ff)
+    if tp is not None:
+        x = comm.copy_to_model(x, tp.group)
     h = x @ params["up"]["w"]
     if "gate" in params:
         h = act(x @ params["gate"]["w"]) * h
     else:
         h = act(h)
-    return h @ params["down"]["w"]
+    if tp is None:
+        return h @ params["down"]["w"]
+    return row_parallel(h, params["down"]["w"], tp)
 
 
 # ------------------------------------------------------------- embedding
@@ -192,16 +265,58 @@ def embed_init(gen, vocab: int, d_model: int, dtype, lead: tuple = (),
                            fill)}
 
 
-def embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
-    return F.embedding(tokens, params["table"])
+def embed(params: dict, tokens: torch.Tensor,
+          vocab: Optional[int] = None) -> torch.Tensor:
+    """``vocab``: the full vocabulary, which tells a vocab-split table from
+    a whole one (None: whole).  Split, each rank looks up the tokens its
+    rows hold, zeros the others, and the sum over the axis (one nonzero
+    term a token) is the lookup."""
+    table = params["table"]
+    tp = split_axis(table.shape[0], vocab)
+    if tp is None:
+        return F.embedding(tokens, table)
+    n = table.shape[0]
+    local = tokens - tp.rank * n
+    inside = (local >= 0) & (local < n)
+    x = F.embedding(torch.where(inside, local, 0), table)
+    x = torch.where(inside[..., None], x, torch.zeros((), dtype=x.dtype,
+                                                      device=x.device))
+    return comm.reduce_from_model(x, tp.group)
 
 
-def unembed(params: dict, x: torch.Tensor,
-            softcap: float = 0.0) -> torch.Tensor:
-    logits = (x @ params["table"].transpose(-1, -2)).float()
+def _logits(x: torch.Tensor, w: torch.Tensor, vocab: Optional[int],
+            softcap: float) -> torch.Tensor:
+    tp = split_axis(w.shape[-1], vocab)
+    if tp is not None:
+        x = comm.copy_to_model(x, tp.group)
+    logits = (x @ w).float()
     if softcap > 0:
         logits = softcap * torch.tanh(logits / softcap)
     return logits
+
+
+def unembed(params: dict, x: torch.Tensor, softcap: float = 0.0,
+            vocab: Optional[int] = None) -> torch.Tensor:
+    """Tied head.  With a vocab-split table the logits are this rank's
+    columns of them."""
+    return _logits(x, params["table"].transpose(-1, -2), vocab, softcap)
+
+
+def vocab_argmax(logits: torch.Tensor,
+                 vocab: Optional[int] = None) -> torch.Tensor:
+    """``argmax`` over the last dim, the lowest index among ties (as
+    ``jnp.argmax``); over every rank's columns when ``logits`` are this
+    rank's part of a vocab-split whole (two all-reduce maxes)."""
+    tp = split_axis(logits.shape[-1], vocab)
+    if tp is None:
+        return torch.argmax(logits, dim=-1)
+    val, idx = torch.max(logits, dim=-1)
+    top = comm.all_reduce_max(val.clone(), tp.group)
+    lo = tp.rank * logits.shape[-1]
+    # the lowest global index among the ranks holding the max: max of -i
+    neg = torch.where(val == top, -(idx + lo),
+                      torch.full_like(idx, -(1 << 62)))
+    return -comm.all_reduce_max(neg, tp.group)
 
 
 def lm_head_init(gen, d_model: int, vocab: int, dtype, lead: tuple = (),
@@ -210,12 +325,10 @@ def lm_head_init(gen, d_model: int, vocab: int, dtype, lead: tuple = (),
                             device=device)}
 
 
-def lm_head(params: dict, x: torch.Tensor,
-            softcap: float = 0.0) -> torch.Tensor:
-    logits = (x @ params["w"]).float()
-    if softcap > 0:
-        logits = softcap * torch.tanh(logits / softcap)
-    return logits
+def lm_head(params: dict, x: torch.Tensor, softcap: float = 0.0,
+            vocab: Optional[int] = None) -> torch.Tensor:
+    """With a vocab-split head the logits are this rank's columns."""
+    return _logits(x, params["w"], vocab, softcap)
 
 
 # --------------------------------------------------------- grad barrier

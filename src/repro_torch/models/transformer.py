@@ -19,6 +19,12 @@ optimizer, the clip and the consensus act leaf by leaf on whole stacks.
 ``_scan_blocks`` is a Python loop over the layers; with ``remat`` each layer
 runs under ``torch.utils.checkpoint`` (a hybrid group, as in the JAX
 package, is one checkpointed unit).
+
+Under an active mesh with a "model" axis wider than 1 the dense family
+(GQA) runs tensor-parallel on each rank's local shards: the residual
+stream ("embed") replicated, attention and the MLP split over the axis,
+the embedding and the head over "vocab" (``forward`` then returns this
+rank's columns of the logits).  Every other family raises there.
 """
 from __future__ import annotations
 
@@ -31,6 +37,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch import tree as TR
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding as SH
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
@@ -124,6 +131,20 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, lead: tuple = (),
 
 # ---------------------------------------------------------------- forward
 
+def require_tp_support(cfg: ModelConfig) -> None:
+    """Raise when a model axis wider than 1 is active and ``cfg`` is not
+    of the family that runs tensor-parallel (dense, GQA)."""
+    if SH.model_axis() is None:
+        return
+    if cfg.family != "dense" or cfg.attn_type == "mla":
+        kind = "MLA" if cfg.attn_type == "mla" else cfg.family
+        raise NotImplementedError(
+            f"{cfg.arch_id}: tensor-parallel execution over the model axis "
+            f"covers the dense family with GQA; the {kind} family waits "
+            f"for ROADMAP queue 1 item 5.1 (run it with a model axis of "
+            f"1)")
+
+
 def _dense_block(bp, x, positions, cfg: ModelConfig, window: int,
                  causal: bool = True):
     h = L.rmsnorm(bp["ln1"], x, cfg.norm_eps)
@@ -136,7 +157,7 @@ def _dense_block(bp, x, positions, cfg: ModelConfig, window: int,
     if "moe" in bp:
         h, aux = MOE.moe_mlp(bp["moe"], h, cfg)
         return x + h, aux
-    return x + L.mlp(bp["mlp"], h, cfg.activation), 0.0
+    return x + L.mlp(bp["mlp"], h, cfg.activation, cfg.d_ff), 0.0
 
 
 def _ssm_block(bp, x, cfg: ModelConfig):
@@ -186,6 +207,7 @@ def _scan_blocks(stacked, fn, x, remat):
     flat, treedef = TR.flatten(stacked)
     layers = [t.unbind(0) for t in flat]
     ctx = _remat_context(remat) if remat else None
+    fn = SH.bound(fn) if remat else fn
     aux = 0.0
     for i in range(flat[0].shape[0]):
         bp = TR.unflatten(treedef, [ls[i] for ls in layers])
@@ -210,10 +232,11 @@ def forward_features(params: Params, batch: Dict[str, torch.Tensor],
                      ) -> Tuple[torch.Tensor, Any]:
     """Backbone only: returns (normalized features (B,S,d), aux_loss) —
     the head is applied by ``forward`` or by the chunked-CE loss."""
+    require_tp_support(cfg)
     tokens = batch["tokens"]
     positions = torch.arange(tokens.shape[-1], device=tokens.device)
     window = cfg.window if window_override is None else window_override
-    x = L.embed(params["embed"], tokens)
+    x = L.embed(params["embed"], tokens, cfg.vocab)
     if cfg.family == "audio":
         # whisper's decoder takes absolute (sinusoidal) positions, no rope
         x = x + _sinusoids(tokens.shape[-1], x)[None]
@@ -265,10 +288,15 @@ def forward(params: Params, batch: Dict[str, torch.Tensor],
     img_pos (B,n) | frames (B,n_frames,d)].  Returns (logits (B,S,V) fp32,
     aux_loss)."""
     x, aux = forward_features(params, batch, cfg, remat, window_override)
-    logits = (L.unembed(params["embed"], x, cfg.logit_softcap)
-              if cfg.tie_embeddings
-              else L.lm_head(params["lm_head"], x, cfg.logit_softcap))
-    return logits, aux
+    return head(params, x, cfg), aux
+
+
+def head(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The logits of features ``x``, float32 (this rank's columns of them
+    when the head is vocab-split)."""
+    if cfg.tie_embeddings:
+        return L.unembed(params["embed"], x, cfg.logit_softcap, cfg.vocab)
+    return L.lm_head(params["lm_head"], x, cfg.logit_softcap, cfg.vocab)
 
 
 # ------------------------------------------------------ audio (whisper)

@@ -14,7 +14,7 @@ import json
 import logging
 import os
 import threading
-from typing import (Any, Dict, Iterable, List, Protocol, Sequence,
+from typing import (Any, Dict, Iterable, List, Optional, Protocol, Sequence,
                     runtime_checkable)
 
 import numpy as np
@@ -137,9 +137,16 @@ def scalarize(record: Dict[str, Any]) -> Dict[str, Any]:
 
 # ------------------------------------------------------ tree computations
 
-def tree_sq_sum(tree: Tree) -> torch.Tensor:
-    """Sum of squares over every leaf (float32 accumulation)."""
+def tree_sq_sum(tree: Tree,
+                counted: Optional[Sequence[bool]] = None) -> torch.Tensor:
+    """Sum of squares over every leaf (float32 accumulation); with
+    ``counted`` (per leaf, in ``tree.leaves`` order) only over the leaves
+    flagged True: a tensor-parallel rank counts a leaf replicated over
+    the model axis only once (on model rank 0), so the sum over every
+    rank counts each element once."""
     leaves = T.leaves(tree)
+    if counted is not None:
+        leaves = [l for l, c in zip(leaves, counted) if c]
     if not leaves:
         return torch.zeros((), dtype=torch.float32)
     return sum(torch.sum(torch.square(l.float())) for l in leaves)
@@ -150,13 +157,17 @@ def global_norm(tree: Tree) -> torch.Tensor:
     return torch.sqrt(tree_sq_sum(tree))
 
 
-def consensus_error(tree: Tree, group=None) -> torch.Tensor:
+def consensus_error(tree: Tree, group=None,
+                    counted: Optional[Sequence[bool]] = None,
+                    model_group=None) -> torch.Tensor:
     """RMS per-agent disagreement sqrt(1/A sum_i ||x_i - x̄||^2), the norm
     taken over all leaves jointly.  Leaves carry a leading agent dim A.
     It is the Lyapunov quantity of Thm 2.1 and is 0 exactly at consensus.
     With a process ``group`` (``distributed.comm``) the leaves hold this
     rank's slice of the agents, and the mean and the sum span every
-    rank's."""
+    rank's.  Tensor-parallel, the leaves are this rank's shards: only the
+    leaves flagged in ``counted`` add to the sum, which is then summed
+    over ``model_group`` too."""
     leaves = T.leaves(tree)
     if not leaves:
         return torch.zeros((), dtype=torch.float32)
@@ -164,6 +175,8 @@ def consensus_error(tree: Tree, group=None) -> torch.Tensor:
     A_all = A if group is None else A * comm.world_size(group)
     per_agent = torch.zeros((A,), dtype=torch.float32,
                             device=leaves[0].device)
+    if counted is not None:
+        leaves = [l for l, c in zip(leaves, counted) if c]
     for l in leaves:
         v = l.float()
         if group is None:
@@ -173,9 +186,13 @@ def consensus_error(tree: Tree, group=None) -> torch.Tensor:
                                        group) / A_all
         per_agent = per_agent + torch.sum(
             torch.square(v - mean).reshape(A, -1), dim=1)
-    if group is None:
+    if group is None and model_group is None:
         return torch.sqrt(torch.mean(per_agent))
-    return torch.sqrt(comm.all_reduce_sum(per_agent.sum(), group) / A_all)
+    total = per_agent.sum()
+    for g in (group, model_group):
+        if g is not None:
+            total = comm.all_reduce_sum(total, g)
+    return torch.sqrt(total / A_all)
 
 
 def frodo_step_metrics(grads: Tree, memory_terms: Tree,
@@ -186,16 +203,22 @@ def frodo_step_metrics(grads: Tree, memory_terms: Tree,
 
 
 def frodo_step_metrics_sq(grads: Tree, memory_sq: Sequence[torch.Tensor],
-                          delta: Tree) -> Dict[str, torch.Tensor]:
+                          delta: Tree,
+                          counted: Optional[Sequence[bool]] = None
+                          ) -> Dict[str, torch.Tensor]:
     """``frodo_step_metrics`` from the memory terms' per-leaf squared norms,
     in leaf order (the same sum, so the same value): the optimizer keeps
-    these instead of the f32 memory terms themselves."""
+    these instead of the f32 memory terms themselves.  With ``counted``
+    (``tree_sq_sum``'s) the leaves flagged False are left out of all
+    three."""
     memory_sq = list(memory_sq)
+    if counted is not None:
+        memory_sq = [m for m, c in zip(memory_sq, counted) if c]
     return {
-        "grad_norm": global_norm(grads),
+        "grad_norm": torch.sqrt(tree_sq_sum(grads, counted)),
         "memory_norm": torch.sqrt(sum(memory_sq) if memory_sq else
                                   torch.zeros((), dtype=torch.float32)),
-        "update_norm": global_norm(delta),
+        "update_norm": torch.sqrt(tree_sq_sum(delta, counted)),
     }
 
 

@@ -7,6 +7,14 @@ decode and a prefill shape; ``Engine`` is the runnable host-side API.
 ``Engine`` owns a persistent :class:`~repro_torch.serving.scheduler.Scheduler`
 and ``generate()`` is a blocking wrapper over its ``submit``/``poll``
 lifecycle.
+
+Under ``use_rules(serve_rules(...), mesh)`` with a "model" axis wider
+than 1, the two units run the dense family tensor-parallel on each rank's
+local shards (parameters under ``param_specs``, the cache under
+``cache_specs``, the batch's rows under ``batch_specs_serve``):
+``make_prefill`` returns this rank's vocab columns of the last logits,
+``make_serve_step`` the greedy tokens over every rank's columns.
+``Engine`` and its scheduler are one-process, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -20,6 +28,7 @@ import torch
 from repro_torch import obs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import decode as D
+from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.serving.scheduler import Scheduler, SchedulerConfig
 
@@ -31,7 +40,7 @@ def make_serve_step(cfg: ModelConfig, window_override: Optional[int] = None):
     def serve_step(params, cache, tokens, pos):
         logits, cache = D.decode_step(params, cache, tokens, pos, cfg,
                                       window_override)
-        next_tok = torch.argmax(logits[:, -1], dim=-1)
+        next_tok = L.vocab_argmax(logits[:, -1], cfg.vocab)
         return next_tok[:, None], cache
 
     return serve_step

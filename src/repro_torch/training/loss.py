@@ -1,13 +1,22 @@
 """Losses and gradient clipping: the port of the JAX package's
-``repro.training.loss``."""
+``repro.training.loss``.
+
+With a vocab-split head (tensor-parallel over the "model" axis) the
+chunked cross-entropy takes the log-sum-exp from an all-reduced max and
+sum of exponentials, the target logit from the rank whose columns hold
+it, and accuracy's argmax over every rank's columns (the lowest global
+index among ties, as ``jnp.argmax``)."""
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import tree as TR
+from repro_torch.distributed import comm
+from repro_torch.distributed import sharding as SH
+from repro_torch.models import layers as L
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
@@ -40,15 +49,36 @@ def _ce_chunk(xc, head_w, lc, softcap):
     return ((lse - gold) * mask).sum(), mask.sum(), correct
 
 
+def _ce_chunk_split(xc, head_w, lc, softcap, vocab):
+    """``_ce_chunk`` over this rank's columns of a vocab-split head."""
+    tp = L.split_axis(head_w.shape[-1], vocab)
+    logits = L._logits(xc, head_w, vocab, softcap)
+    top = comm.all_reduce_max(logits.detach().amax(dim=-1), tp.group)
+    se = torch.exp(logits - top[..., None]).sum(dim=-1)
+    lse = torch.log(comm.reduce_from_model(se, tp.group)) + top
+    n = logits.shape[-1]
+    local = lc - tp.rank * n
+    inside = (local >= 0) & (local < n)
+    gold = torch.gather(logits, -1, torch.where(inside, local, 0)[..., None])
+    gold = comm.reduce_from_model(
+        torch.where(inside, gold[..., 0], torch.zeros_like(gold[..., 0])),
+        tp.group)
+    mask = (lc >= 0).float()
+    correct = ((L.vocab_argmax(logits.detach(), vocab) == lc) * mask).sum()
+    return ((lse - gold) * mask).sum(), mask.sum(), correct
+
+
 def chunked_cross_entropy(x, head_w, labels, n_chunks: int = 8,
-                          softcap: float = 0.0):
+                          softcap: float = 0.0,
+                          vocab: Optional[int] = None):
     """CE over (B,S,d) features without materializing (B,S,V) fp32 logits:
     rows are processed in checkpointed chunks, so the backward recomputes
     each chunk's logits instead of keeping them live (the fused-CE pattern).
 
     x: (B,S,d); head_w: (d,V); labels: (B,S) int (negatives masked).
     Returns (loss, metrics) like ``cross_entropy``.  ``n_chunks`` is halved
-    until it divides B*S."""
+    until it divides B*S.  ``vocab``: the full vocabulary, which tells this
+    rank's columns of a vocab-split head from a whole one (None: whole)."""
     B, S, d = x.shape
     N = B * S
     while N % n_chunks:
@@ -58,9 +88,15 @@ def chunked_cross_entropy(x, head_w, labels, n_chunks: int = 8,
     lr = labels.long().reshape(n_chunks, N // n_chunks)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     ce_sum, mask_sum, corr = zero, zero, zero
+    split = L.split_axis(head_w.shape[-1], vocab) is not None
     for i in range(n_chunks):
-        ce, m, c = checkpoint(_ce_chunk, xr[i], head_w, lr[i], softcap,
-                              use_reentrant=False)
+        if split:
+            # recomputed in autograd's thread: under this one's rules
+            ce, m, c = checkpoint(SH.bound(_ce_chunk_split), xr[i], head_w,
+                                  lr[i], softcap, vocab, use_reentrant=False)
+        else:
+            ce, m, c = checkpoint(_ce_chunk, xr[i], head_w, lr[i], softcap,
+                                  use_reentrant=False)
         ce_sum, mask_sum, corr = ce_sum + ce, mask_sum + m, corr + c
     denom = torch.clamp(mask_sum, min=1.0)
     loss = ce_sum / denom

@@ -23,6 +23,16 @@ hierarchical schedule's Kronecker factors included, through
 ``general_mix``), and the metrics.  The result is the one-process stacked
 run's to f32 rounding (bit for bit at one rank).
 
+**Tensor-parallel.**  Built under ``use_rules(build_rules(...), mesh)``
+with a mesh whose "model" axis is wider than 1 (the dense family only),
+every rank holds its local shard of each leaf of the state under
+``train_state_specs`` (``repro_torch.convert`` cuts them) and the batch of
+its agents; the agents go over the rules' agent axes (the "data" group,
+the path above), the model runs split over the "model" axis.  A leaf
+replicated over that axis is counted once (on model rank 0) in the clip's
+norm and in the metrics, whose sums then span the whole mesh.  The FrODO
+update runs on the local shards, in place.
+
 The sharding-spec functions (``build_rules``, ``param_specs``,
 ``train_state_specs``, ...) give the JAX package's specs for the same
 trees.
@@ -88,13 +98,16 @@ class TrainState(NamedTuple):
     step: int            # a host integer: reading it never waits
 
 
-def build_optimizer(tc: TrainConfig) -> Optimizer:
+def build_optimizer(tc: TrainConfig, counted=None) -> Optimizer:
+    """``counted``: FrODO's per-leaf flags for its in-step norms
+    (``frodo``); the baselines keep no norms."""
     if tc.optimizer == "frodo":
         return frodo(FrodoConfig(alpha=tc.alpha, beta=tc.beta, lam=tc.lam,
                                  T=tc.T, memory_mode=tc.memory_mode, K=tc.K,
                                  use_kernel=tc.use_kernel,
                                  acc_dtype=tc.acc_dtype,
-                                 collect_metrics=tc.collect_metrics))
+                                 collect_metrics=tc.collect_metrics),
+                     counted)
     if tc.optimizer == "no_memory":
         return baselines.no_memory(tc.alpha)
     if tc.optimizer == "heavy_ball":
@@ -298,7 +311,8 @@ def make_loss_fn(cfg: ModelConfig, tc: TrainConfig):
         x, aux = T.forward_features(params, batch, cfg, remat=tc.remat)
         ce, metrics = chunked_cross_entropy(
             x, T.head_weight(params, cfg), batch["labels"],
-            n_chunks=tc.ce_chunks, softcap=cfg.logit_softcap)
+            n_chunks=tc.ce_chunks, softcap=cfg.logit_softcap,
+            vocab=cfg.vocab)
         return ce + aux, metrics
     return loss_fn
 
@@ -333,16 +347,61 @@ def _global_norm(tree: Any, group=None) -> torch.Tensor:
     return torch.sqrt(sq)
 
 
+def _tp_global_norm(tree: Any, counted) -> torch.Tensor:
+    """The L2 norm over every leaf of every agent when each rank holds its
+    shards: each rank's squares of the leaves flagged in ``counted``,
+    summed over the whole mesh (the default group)."""
+    return torch.sqrt(comm.all_reduce_sum(
+        obs_metrics.tree_sq_sum(tree, counted), None))
+
+
+def model_counted(cfg: ModelConfig, n_agents: int, rules: Dict[str, Any],
+                  mesh, model_rank: int) -> list:
+    """Per param leaf (``tree.leaves`` order): whether this rank counts it
+    in a sum over the mesh: a leaf split over "model", or any leaf on
+    model rank 0."""
+    shapes = T.init_params(torch.Generator(), cfg, (n_agents,), "meta")
+    specs = param_specs(shapes, rules, mesh, agent_stacked=True)
+    return [model_rank == 0 or any("model" in SH.axes_of(p) for p in spec)
+            for spec in TR.leaves(specs)]
+
+
+def _tp_layout(cfg: ModelConfig, n_agents: int, group):
+    """(the model axis, the agents' group, the counted flags) under the
+    active rules and mesh, or (None, group, None) with no model axis."""
+    tp = SH.model_axis()
+    if tp is None:
+        return None, group, None
+    T.require_tp_support(cfg)
+    mesh, rules = SH.current_mesh(), SH.current_rules()
+    sizes = SH.mesh_axis_sizes(mesh)
+    for key in ("batch", "fsdp"):
+        if any(sizes[a] > 1 for a in SH.axes_of(rules.get(key))):
+            raise NotImplementedError(
+                f"{cfg.arch_id}: the {key!r} rule over {rules[key]} with a "
+                f"model axis: the fsdp rule waits for ROADMAP queue 1 item "
+                f"5.1; tensor-parallel training takes the agents over the "
+                f"data axes")
+    if group is None and SH.axes_of(rules.get("agent")):
+        group = SH.axes_group(mesh, SH.axes_of(rules["agent"]))
+    return tp, group, model_counted(cfg, n_agents, rules, mesh, tp.rank)
+
+
 def make_train_step(cfg: ModelConfig, tc: TrainConfig, n_agents: int,
                     n_pods: int = 1, group=None) -> Callable:
     """Builds train_step(state, batch) -> (state, metrics).  Batch leaves
     (numpy arrays or tensors) carry the leading agent dim: all A
     (= n_agents) agents, or with a process ``group`` (``distributed.comm``)
     this rank's A / world of them, as its state does.  The optimizer state
-    is advanced in place: the state passed in is consumed."""
-    opt = build_optimizer(tc)
+    is advanced in place: the state passed in is consumed.  Built under
+    ``use_rules(rules, mesh)`` with a model axis wider than 1, the step is
+    tensor-parallel (module docstring); its agents' group is then the
+    rules' agent axes unless ``group`` is given."""
+    tp, group, counted = _tp_layout(cfg, n_agents, group)
+    opt = build_optimizer(tc, counted)
     W, W_intra, W_pod = build_mixing(tc, n_agents, n_pods)
     loss_fn = make_loss_fn(cfg, tc)
+    model_group = None if tp is None else tp.group
     A_loc, lo = n_agents, 0
     if group is not None:
         world = comm.world_size(group)
@@ -436,9 +495,10 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, n_agents: int,
         del g
 
         if tc.grad_clip > 0:
+            norm = (_global_norm(grads, group) if tp is None
+                    else _tp_global_norm(grads, counted))
             grads, gnorm = clip_by_global_norm(
-                grads, float(tc.grad_clip * np.sqrt(n_agents)),
-                norm=_global_norm(grads, group))
+                grads, float(tc.grad_clip * np.sqrt(n_agents)), norm=norm)
         else:
             gnorm = torch.zeros((), dtype=torch.float32, device=dev)
 
@@ -471,19 +531,24 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, n_agents: int,
             # rank's agents
             if isinstance(opt_state, dict):
                 for k, v in opt_state.get("metrics", {}).items():
-                    if group is not None:
+                    if tp is not None:       # every rank's counted leaves
+                        v = torch.sqrt(comm.all_reduce_sum(v * v, None))
+                    elif group is not None:
                         v = torch.sqrt(comm.all_reduce_sum(v * v, group))
                     out_metrics.setdefault(k, v)
             out_metrics["consensus_error_pre_mix"] = \
-                obs_metrics.consensus_error(params, group)
+                obs_metrics.consensus_error(params, group, counted,
+                                            model_group)
 
         if n_agents > 1 and state.step % tc.consensus_interval == 0:
             params = mix(params, state.step, dev)
 
         if tc.collect_metrics:
             out_metrics["consensus_error"] = obs_metrics.consensus_error(
-                params, group)
-            out_metrics["param_norm"] = _global_norm(params, group)
+                params, group, counted, model_group)
+            out_metrics["param_norm"] = (
+                _global_norm(params, group) if tp is None
+                else _tp_global_norm(params, counted))
             if faults is not None:
                 t = state.step % faults.n_steps
                 out_metrics.update({k: v[t]

@@ -1,0 +1,131 @@
+"""The dry-run's collective record (``repro_torch.launch.dryrun``) and the
+roofline's link term.
+
+* The counts the dry-run takes on ``meta`` tensors in a ``fake`` world
+  equal ``comm.COUNTS`` of the same units run for real on two gloo ranks
+  at (1, 2): h2o-danube-1.8b's smoke config, a train step, a prefill and a
+  decode step at small shapes.
+* A production-mesh record of a dense (arch, shape) carries the JAX
+  dry-run's keys (``collectives``: ``bytes_by_kind``, ``counts``,
+  ``effective_bytes_per_device`` under its ring factors;
+  ``extrapolated.collective_*``; ``analytic``), its depth extrapolation
+  equals the full-depth count, and the roofline's link term is its
+  effective bytes over NVLink's rate; a record of another family holds
+  ``collectives: null`` with a reason and no link term.
+"""
+import ast
+import json
+import os
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import dataclasses  # noqa: E402
+
+from repro_torch.configs import registry as REG  # noqa: E402
+from repro_torch.configs.base import InputShape  # noqa: E402
+from repro_torch.distributed import comm  # noqa: E402
+from repro_torch.experiments import roofline as RF  # noqa: E402
+from repro_torch.launch import dryrun as DR  # noqa: E402
+from repro_torch.launch import mesh as ML  # noqa: E402
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SHAPES = [InputShape("tiny_train", 16, 4, "train"),
+          InputShape("tiny_prefill", 16, 2, "prefill"),
+          InputShape("tiny_decode", 32, 2, "decode")]
+TC = dataclasses.replace(DR.TRAIN_CONFIG, use_kernel=False)
+
+
+def smoke():
+    return REG.get_smoke_config("h2o-danube-1.8b")
+
+
+def _rank_counts(rank, world, out_dir):
+    mesh = ML.make_host_mesh(2)
+    got = {s.name: DR.count_collectives(smoke(), s, mesh, False, TC, "cpu")
+           for s in SHAPES}
+    if rank == 0:
+        with open(os.path.join(out_dir, "real.json"), "w") as f:
+            json.dump(got, f)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def real(tmp_path_factory):
+    d = str(tmp_path_factory.mktemp("tp_dryrun"))
+    comm.spawn(_rank_counts, 2, d, store_dir=d, threads=1)
+    with open(os.path.join(d, "real.json")) as f:
+        return json.load(f)
+
+
+def test_meta_counts_equal_a_real_gloo_run(real):
+    with ML.fake_world(2):
+        mesh = ML.make_host_mesh(2)
+        meta = {s.name: DR.count_collectives(smoke(), s, mesh, False, TC)
+                for s in SHAPES}
+    assert json.loads(json.dumps(meta)) == real
+    for s in SHAPES:
+        assert real[s.name]["counts"]["all-reduce"] > 0
+
+
+def jax_coll_factor():
+    src = open(os.path.join(REPO, "src", "repro", "launch",
+                            "dryrun.py")).read()
+    for node in ast.walk(ast.parse(src)):
+        if (isinstance(node, ast.Assign) and isinstance(node.targets[0],
+                                                        ast.Name)
+                and node.targets[0].id == "_COLL_FACTOR"):
+            return ast.literal_eval(node.value)
+    raise AssertionError("no _COLL_FACTOR")
+
+
+@pytest.fixture(scope="module")
+def records(tmp_path_factory):
+    out = str(tmp_path_factory.mktemp("tp_records"))
+    recs = DR.run_mesh(["h2o-danube-1.8b", "mamba2-780m"], ["decode_32k"],
+                       False, out)
+    return {r["arch"]: r for r in recs}, out
+
+
+def test_records_carry_the_jax_keys_and_the_link_term(records):
+    recs, out = records
+    assert DR.COLL_FACTOR == jax_coll_factor()
+    r = recs["h2o-danube-1.8b"]
+    coll = r["collectives"]
+    assert set(coll) == {"bytes_by_kind", "counts",
+                         "effective_bytes_per_device"}
+    assert set(coll["counts"]) == {"all-reduce"}
+    assert coll["effective_bytes_per_device"] == 2.0 * \
+        coll["bytes_by_kind"]["all-reduce"] > 0
+    ext = r["extrapolated"]
+    assert ext["trip_count"] == 24
+    # the per-layer collectives are affine in depth: the extrapolation from
+    # 2 and 3 layers is the full-depth count
+    assert ext["collective_bytes_by_kind"] == coll["bytes_by_kind"]
+    assert ext["collective_effective_bytes_per_device"] == \
+        coll["effective_bytes_per_device"]
+    assert {"exec_flops", "model_flops", "hbm_bytes"} <= set(r["analytic"])
+    t = RF.roofline_terms(r)
+    assert t["t_link_s"] == ext["collective_effective_bytes_per_device"] \
+        / 450e9 > 0
+    assert RF.CHIPS["16x16"] == 256 and RF.CHIPS["2x16x16"] == 512
+    m = recs["mamba2-780m"]
+    assert m["collectives"] is None and "5.1" in m["collectives_reason"]
+    tm = RF.roofline_terms(m)
+    assert tm["t_link_s"] is None and tm["dominant"] != "link"
+    text = RF.report(RF.load_records(out))
+    assert text.startswith("Card: NVIDIA H100 80GB HBM3, 700.00 W")
+    assert "NVLink" in text
+    row = [l for l in text.splitlines()
+           if l.startswith("| mamba2-780m | decode_32k | 16x16")]
+    assert len(row) == 1 and "| n/a |" in row[0]
+    assert np.isfinite(t["step_time_bound_s"])
