@@ -34,7 +34,8 @@ Phases, each printing one JSON line:
    ``benchmarks/baselines/exp3.json``, the exact-kernel launches of the
    FrODO arms, kernel vs plain path per round, the >= 2x robustness
    headline at 30% drop; ms per round; then the default scale (2000 / 150),
-   timed, in both drop modes;
+   timed, in both drop modes.  It runs in a process of its own beside
+   the serving phase (10), and its lines come after that phase's;
 9. llm_train: the LLM trainer (``repro_torch.launch.train.run_training``)
    on h2o-danube-1.8b at full width, depth cut to 8 layers, seq 4096, 2
    agents x 2 sequences, FrODO exp-sum memory (K = 8, f32 accumulators)
@@ -92,7 +93,10 @@ Phases, each printing one JSON line:
     the first requests run alone and ``Engine.generate`` bit-equal to the
     packed run; tokens/s, TTFT, ms per step by phase and per prefill token, the
     busy share, peak memory, and one decode step over the full arena
-    beside its weight-read bound;
+    beside its weight-read bound.  The models run in the groups of
+    SERVE_GROUPS: qwen3-moe-30b-a3b alone, then h2o-danube-1.8b,
+    mamba2-780m and whisper-tiny in a process of their own beside the
+    other three in this one;
 11. dryrun: ``repro_torch.launch.dryrun --all`` over the ten architectures
     x four shapes on the meta path (each record ``ok`` or skipped with
     ``registry.shape_supported``'s reason), then ``--probe`` on
@@ -236,6 +240,80 @@ def emit(phase: str, **kw) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
+
+
+# --------------------------------------------- phases in a process of their own
+#: Host-bound phases (Exp 3's round loops, serving's dispatch) leave the
+#: card idle most of the time, so some run in a process of their own beside
+#: the main one.  On an H100 (700 W), two Exp 3 sweeps side by side each
+#: took what one took alone (21.4 and 20.2 s against 21.8), whisper-tiny's
+#: traffic beside one took 8.1 s against 7.3, and a bf16 GEMM loop beside
+#: one ran 11% slower.  Such a process prints its phase lines into a file,
+#: which this process prints when it joins it; its lines' ``t_s`` read the
+#: same clock (``time.perf_counter`` is CLOCK_MONOTONIC).
+PHASE_THREADS = 2          # intra-op CPU threads of such a process
+_CHILDREN = []             # every such process, stopped if the run fails
+
+
+def _phase_entry(_i: int, name: str, args: tuple, out_dir: str,
+                 t0: float) -> None:
+    """Runs ``globals()[name](cuda:0, *args)`` with stdout to ``out_dir``
+    and its result pickled there."""
+    import pickle
+
+    import torch
+    from repro_torch.device import set_full_precision
+
+    global T0
+    T0 = t0
+    fd = os.open(os.path.join(out_dir, "stdout"),
+                 os.O_WRONLY | os.O_CREAT | os.O_TRUNC)
+    os.dup2(fd, 1)
+    torch.set_num_threads(PHASE_THREADS)
+    set_full_precision()
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    out = globals()[name](dev, *args)
+    with open(os.path.join(out_dir, "result.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def start_phase(fn, *args):
+    """Starts ``fn(cuda:0, *args)`` in a spawned process; returns a handle
+    for :func:`finish_phase`."""
+    import torch.multiprocessing as mp
+
+    out_dir = tempfile.mkdtemp(prefix=f"chip_smoke_{fn.__name__}_")
+    ctx = mp.start_processes(_phase_entry, args=(fn.__name__, args, out_dir,
+                                                 T0),
+                             nprocs=1, join=False, start_method="spawn")
+    _CHILDREN.append(ctx)
+    return ctx, out_dir
+
+
+def finish_phase(handle):
+    """Waits for the process, prints its phase lines, returns ``fn``'s
+    result; raises if the process raised."""
+    import pickle
+
+    ctx, out_dir = handle
+    try:
+        while not ctx.join():
+            pass
+    finally:
+        with open(os.path.join(out_dir, "stdout")) as f:
+            sys.stdout.write(f.read())
+        sys.stdout.flush()
+    with open(os.path.join(out_dir, "result.pkl"), "rb") as f:
+        return pickle.load(f)
+
+
+def stop_children() -> None:
+    for ctx in _CHILDREN:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.terminate()
+                p.join(10)
 
 
 def nvidia_smi() -> str:
@@ -1672,8 +1750,8 @@ DVF_PLANTED = {
         "L.sinusoid_at(pos + 1, cfg.d_model)"),
     "cross_v_read_as_cross_k": (
         "D", "whisper-tiny",
-        'A._direct_attn(q, bp["cross_k"], bp["cross_v"], bias)',
-        'A._direct_attn(q, bp["cross_v"], bp["cross_v"], bias)'),
+        'T.cross_attend(p["xattn"], q, bp["cross_k"], bp["cross_v"], cfg)',
+        'T.cross_attend(p["xattn"], q, bp["cross_v"], bp["cross_v"], cfg)'),
     "cross_kv_of_the_next_layer": (
         "D", "whisper-tiny", "TR.tree_map(lambda t: t[i], xa)",
         "TR.tree_map(lambda t: t[(i + 1) % cfg.n_layers], xa)"),
@@ -1945,15 +2023,46 @@ def first_layers(cfg, params, n: int) -> tuple:
         **params, "blocks": TR.tree_map(lambda t: t[:n], params["blocks"])}
 
 
+#: the serving phase's models in three groups: qwen3-moe alone (its 48
+#: layers hold 61 GB), then the second group in a process of its own
+#: beside the third in this one (their peaks add to ~35 GB)
+SERVE_GROUPS = (("qwen3-moe-30b-a3b",),
+                ("h2o-danube-1.8b", "mamba2-780m", "whisper-tiny"),
+                ("minicpm3-4b", "phi-3-vision-4.2b", "recurrentgemma-9b"))
+
+
 def serve_phase(dev) -> dict:
-    """Serving on the card: the launcher's default trace on the card against
-    the card machine's CPU (smoke configs, f32); then per model at full
-    width and depth: decode against the full-sequence forward (and the
-    ring; the f32 run of the MoE and MLA models at cut depth), with
-    planted faults that must fail the same check, and traffic through the
-    scheduler, solo runs and Engine.generate bit-equal to the packed run,
-    timed and profiled.  Returns the FrODO kernels' launches on the serve
-    path of each model (there are none)."""
+    """Serving on the card (:func:`serve_models`) over SERVE_GROUPS: the
+    first group alone, then the second in a process of its own beside the
+    third.  Returns the FrODO kernels' launches on the serve path of each
+    model (there are none)."""
+    check(sorted(sum(SERVE_GROUPS, ())) == sorted(SERVE_ARCHS),
+          f"SERVE_GROUPS {SERVE_GROUPS} != SERVE_ARCHS")
+    parts = [serve_models(dev, SERVE_GROUPS[0])]
+    handle = start_phase(serve_models, SERVE_GROUPS[1])
+    parts.append(serve_models(dev, SERVE_GROUPS[2]))
+    parts.insert(1, finish_phase(handle))
+    out = {k: {a: v for p in parts for a, v in p[k].items()}
+           for k in parts[0]}
+    emit("serve", nvidia_smi=nvidia_smi(), card_vs_cpu=out["card_vs_cpu"],
+         card_vs_cpu_trace=SERVE_SMOKE, decode_vs_forward=out["dvf"],
+         planted_faults=out["planted"], dvf_tol=DVF_TOL,
+         dvf_f32_layers=DVF_F32_LAYERS,
+         traffic_layers=SERVE_TRAFFIC_LAYERS,
+         groups=[list(g) for g in SERVE_GROUPS])
+    return {"launches": out["launches"], "decode_vs_forward": out["dvf"],
+            "planted": out["planted"], "traffic": out["traffic"]}
+
+
+def serve_models(dev, archs: tuple) -> dict:
+    """Serving ``archs`` on the card: the launcher's default trace on the
+    card against the card machine's CPU (smoke configs, f32); then per
+    model at full width and depth: decode against the full-sequence
+    forward (and the ring; the f32 run of the MoE and MLA models at cut
+    depth), with planted faults that must fail the same check, and traffic
+    through the scheduler, solo runs and Engine.generate bit-equal to the
+    packed run, timed and profiled.  Each model draws its inputs from a
+    generator of its own (seeded by its place in SERVE_ARCHS)."""
     import torch
     from repro_torch import tree as TR
     from repro_torch.configs import registry as REG
@@ -1965,7 +2074,7 @@ def serve_phase(dev) -> dict:
 
     # ---------------------------------- card against CPU, smoke configs
     card_cpu = {}
-    for arch in SERVE_ARCHS:
+    for arch in archs:
         cfg = REG.get_smoke_config(arch).replace(param_dtype="float32",
                                                  compute_dtype="float32")
         init = TR.tree_map(lambda t: t.numpy(), T.init_params(
@@ -1988,9 +2097,10 @@ def serve_phase(dev) -> dict:
 
     # --------------- per model, full width and depth: decode vs forward,
     # then traffic
-    gen = torch.Generator(device=dev).manual_seed(3)
     dvf, planted, traffic_out, launches = {}, {}, {}, {}
-    for arch in SERVE_ARCHS:
+    for arch in archs:
+        gen = torch.Generator(device=dev).manual_seed(
+            3 + SERVE_ARCHS.index(arch))
         cfg, params = load_model(arch, False, 0, dev)
         runs = {arch: (None, None, DVF["seq"])}
         if cfg.family == "dense" and cfg.attn_type != "mla":
@@ -2052,12 +2162,7 @@ def serve_phase(dev) -> dict:
                 planted.update(p_)
             del params32
             torch.cuda.empty_cache()
-    emit("serve", nvidia_smi=nvidia_smi(), card_vs_cpu=card_cpu,
-         card_vs_cpu_trace=SERVE_SMOKE, decode_vs_forward=dvf,
-         planted_faults=planted, dvf_tol=DVF_TOL,
-         dvf_f32_layers=DVF_F32_LAYERS,
-         traffic_layers=SERVE_TRAFFIC_LAYERS)
-    return {"launches": launches, "decode_vs_forward": dvf,
+    return {"card_vs_cpu": card_cpu, "launches": launches, "dvf": dvf,
             "planted": planted, "traffic": traffic_out}
 
 
@@ -3258,8 +3363,9 @@ def tp_serve_run(dev, dtype: str, mesh=None, planted: bool = False,
 
 
 def _tp_serve_rank(rank: int, world: int, tmp: str, device: str) -> None:
-    """One of the two serving ranks: both dtypes, then the planted fault;
-    rank 0 saves the gathered outputs to ``tmp/serve.pt``."""
+    """One of the two serving ranks: both dtypes, then the planted fault
+    (rank 0 saves the gathered outputs to ``tmp/serve.pt``); then the
+    families of TP_FAMILIES (``tp_families_ranks``)."""
     import torch
     from repro_torch.device import set_full_precision
     from repro_torch.launch import mesh as ML
@@ -3277,6 +3383,14 @@ def _tp_serve_rank(rank: int, world: int, tmp: str, device: str) -> None:
                          if dev.type == "cuda" else 0)
     if rank == 0:
         torch.save(res, os.path.join(tmp, "serve.pt"))
+    del res
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    tp_families_ranks(dev, tmp, mesh, rank)
+    with open(os.path.join(tmp, f"families_s{rank}.json"), "w") as f:
+        json.dump(time.perf_counter() - t0, f)
 
 
 def row_parallel_gemm(dev) -> dict:
@@ -3307,6 +3421,463 @@ def row_parallel_gemm(dev) -> dict:
     del h, w, got, want
     torch.cuda.empty_cache()
     return out
+
+
+# ------------------------------------- tensor parallel: four more families
+#: the vision, MLA, MoE and audio families tensor-parallel on the serving
+#: ranks' (data 1, model 2) mesh, one family after another at full width,
+#: each held against the one-process units of the same config that this
+#: process runs meanwhile: 2 exp-sum train steps in bf16 with the family's
+#: llm_train accumulators (K = 8; minicpm3 also 2 exact-memory steps at
+#: T = 8), then the serving units in f32: a prefill of 2 x 256 tokens
+#: (phi-3-vision's patch embeddings at the first 64 positions, whisper's
+#: 1,500 frames) and 16 greedy decode steps from an empty cache of 256
+#: slots (128 a rank; whisper's cross K/V from ``encode_for_decode``)
+TP_FAMILIES = {VLM_ARCH: dict(n_layers=2, acc_dtype="float32"),
+               MLA_ARCH: dict(n_layers=2, acc_dtype="float32", exact_T=8),
+               AUDIO_ARCH: dict(n_layers=4, acc_dtype="float32"),
+               MOE_ARCH: dict(n_layers=1, acc_dtype="bfloat16")}
+TP_FAM = dict(seq=2048, batch_per_agent=1, K=8, steps=2, exact_steps=2,
+              prefill=(2, 256), img_tokens=64, decode_steps=16, max_len=256)
+TP_FAM_REDUCED = {
+    "n_layers": "phi-3-vision 32 -> 2, minicpm3 62 -> 2, qwen3-moe 48 -> 1 "
+                "(its llm_train cell), whisper-tiny at full depth",
+    "global_batch": "256 x 4096 -> one agent's 1 x 2048 (the (data 1, "
+                    "model 2) mesh has one agent; the row-parallel sums go "
+                    "through host memory over gloo)",
+    "mesh": "(data 1, model 2): two ranks share one H100 over gloo"}
+#: a planted fault per family, in its tensor-parallel prefill
+TP_FAM_PLANTED = {MOE_ARCH: "moe_combine_without_reduce",
+                  AUDIO_ARCH: "cross_attention_without_reduce",
+                  MLA_ARCH: "k_rope_from_rank0_columns"}
+
+
+def _without_reduce(real):
+    """A planted fault: ``real`` with every ``reduce_from_model`` in it
+    skipped (each rank keeps its partial sums)."""
+    from repro_torch.distributed import comm
+
+    def fn(*args, **kwargs):
+        saved = comm.reduce_from_model
+        comm.reduce_from_model = lambda t, group: t
+        try:
+            return real(*args, **kwargs)
+        finally:
+            comm.reduce_from_model = saved
+    return fn
+
+
+def _k_rope_from_rank0(ckv, tp, r):
+    """A planted fault: MLA's rope part read from rank 0's column range of
+    ``kv_down`` (its last rope columns) rather than the whole output's."""
+    from repro_torch.distributed import comm
+
+    full = comm.gather_from_model(ckv, -1, tp.group)
+    w, rope = ckv.shape[-1], full.shape[-1] - r
+    return full[..., :r], full[..., w - rope:w]
+
+
+def tp_fam_planted(name):
+    """(module, attribute, faulty replacement) of a planted fault."""
+    from repro_torch.models import attention as AT
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import transformer as TM
+
+    if name == "moe_combine_without_reduce":
+        return MOE, "moe_mlp", _without_reduce(MOE.moe_mlp)
+    if name == "cross_attention_without_reduce":
+        return TM, "cross_attend", _without_reduce(TM.cross_attend)
+    return AT, "_kv_latent", _k_rope_from_rank0
+
+
+def tp_family_train(dev, arch, tc, mesh=None) -> dict:
+    """``TP_FAM["steps"]`` (or ``exact_steps``) train steps of ``arch`` at
+    TP_FAMILIES' depth from the seed-0 draw: in one process (``mesh``
+    None) or on this rank's shards.  Losses, the clip norm the step used
+    beside the spec tree's norm of its gradient, host ms, launches, the
+    whole parameters (gathered) and whether the replicated leaves are
+    bit-equal across the model ranks."""
+    import torch
+    from repro_torch import convert as CV
+    from repro_torch import tree as TR
+    from repro_torch.configs import registry as REG
+    from repro_torch.data.synthetic import TokenPipeline, augment_modalities
+    from repro_torch.distributed import comm
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.kernels import frodo_update as KU
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as TM
+    from repro_torch.training import train_step as TS
+
+    cfg = REG.get_config(arch).replace(n_layers=TP_FAMILIES[arch]["n_layers"])
+    gen = torch.Generator(device=dev).manual_seed(0)
+    full = TM.init_params(gen, cfg, (1,), dev)
+    data = augment_modalities(iter(TokenPipeline(
+        vocab=cfg.vocab, seq_len=TP_FAM["seq"],
+        batch_per_agent=TP_FAM["batch_per_agent"], n_agents=1, seed=0)),
+        cfg)
+    steps = TP_FAM["exact_steps" if tc.memory_mode == "exact" else "steps"]
+    batches = [next(data) for _ in range(steps)]
+    rules = specs = None
+    if mesh is not None:
+        rules = TS.build_rules(cfg, False)
+        specs = TS.param_specs(full, rules, mesh)
+        shapes = TR.tree_map(lambda t: torch.empty(
+            t.shape, dtype=t.dtype, device="meta"), full)
+        params = CV.shard_tree(full, specs, mesh, dev)
+        del full
+        bspecs = TS.batch_specs(batches[0], rules, mesh)
+        batches = [CV.shard_tree(b, bspecs, mesh, dev) for b in batches]
+        split = [_spec_split(s) for s in TR.leaves(specs)]
+        m_rank = SH.mesh_coords(mesh)["model"]
+    else:
+        params = full
+    state = TS.train_state_from_params(params, tc)
+    del params
+    clips = []
+    real_clip = TS.clip_by_global_norm
+
+    def spy(tree, max_norm, norm=None):
+        sq = sum(torch.sum(torch.square(g.float()))
+                 for g, sp in zip(TR.leaves(tree), split) if sp or m_rank == 0)
+        torch.distributed.all_reduce(sq)         # not the step's: uncounted
+        clips.append((float(norm), float(torch.sqrt(sq))))
+        return real_clip(tree, max_norm, norm)
+
+    if mesh is not None:
+        TS.clip_by_global_norm = spy
+    on_card = dev.type == "cuda"
+    sync = (lambda: torch.cuda.synchronize(dev)) if on_card else (
+        lambda: None)
+    KU.reset_launches()
+    comm.reset_counts()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    losses, ms = [], []
+    try:
+        with SH.use_rules(rules, mesh):
+            step = TS.make_train_step(cfg, tc, 1)
+            for b in batches:
+                sync()
+                t0 = time.perf_counter()
+                with SH.use_rules(rules, mesh):
+                    state, met = step(state, b)
+                sync()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                losses.append(float(met["loss"]))
+    finally:
+        TS.clip_by_global_norm = real_clip
+    out = {"losses": losses, "clips": clips, "ms_per_step": ms,
+           "launches": dict(ops.LAUNCHES),
+           "all_reduce": dict(comm.COUNTS["all_reduce"]),
+           "all_gather": dict(comm.COUNTS["all_gather"]),
+           "peak_bytes": torch.cuda.max_memory_allocated(dev) if on_card
+           else 0,
+           "n_leaves": len(TR.leaves(state.params))}
+    if mesh is None:
+        out["params"] = [t[0] for t in TR.leaves(state.params)]
+        return out
+    out["params"] = [t[0] for t in TR.leaves(CV.gather_tree(
+        state.params, specs, mesh, shapes))]
+    same = True
+    model = (mesh, "model")
+    for leaf, sp in zip(TR.leaves(state.params), split):
+        if not sp:
+            got = comm.all_gather(leaf.contiguous(), model)
+            same &= bool(torch.equal(got[0], got[-1]))
+    out["replicated_bit_equal"] = same
+    return out
+
+
+def tp_family_serve(dev, arch, mesh=None, planted=None) -> dict:
+    """The serving units of TP_FAM for ``arch`` in f32 at TP_FAMILIES'
+    depth from the seed-0 draw, in one process or on this rank's shards
+    under ``serve_rules``: the prefill's last logits, then greedy decode's
+    logits and tokens, gathered whole (with ``planted``, the prefill
+    alone under that fault)."""
+    import numpy as np
+    import torch
+    from repro_torch import convert as CV
+    from repro_torch.configs import registry as REG
+    from repro_torch.distributed import comm
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.models import decode as D
+    from repro_torch.models import transformer as TM
+    from repro_torch.serving import engine as E
+    from repro_torch.training import train_step as TS
+
+    cfg = REG.get_config(arch).replace(
+        n_layers=TP_FAMILIES[arch]["n_layers"], param_dtype="float32",
+        compute_dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    full = TM.init_params(gen, cfg, (), dev)
+    rng = np.random.default_rng(0)
+    B, S = TP_FAM["prefill"]
+    batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab, (B, S)),
+                                       device=dev)}
+    if cfg.family == "vlm":
+        n = TP_FAM["img_tokens"]
+        batch["img_embeds"] = torch.as_tensor(
+            rng.normal(size=(B, n, cfg.d_model)), dtype=torch.float32,
+            device=dev)
+        batch["img_pos"] = torch.arange(n, device=dev).expand(B, n)
+    if cfg.family == "audio":
+        batch["frames"] = torch.as_tensor(
+            rng.normal(size=(B, cfg.n_frames, cfg.d_model)),
+            dtype=torch.float32, device=dev)
+    V = cfg.vocab
+    rules = None
+    params = full
+    if mesh is not None:
+        rules = TS.serve_rules(cfg, False, B, mesh)
+        params = CV.shard_tree(full, TS.param_specs(full, rules, mesh,
+                                                    False), mesh, dev)
+        batch = CV.shard_tree(batch, TS.batch_specs_serve(batch, rules,
+                                                          mesh), mesh, dev)
+    del full
+
+    def whole(t):
+        return t if mesh is None else SH.gather(
+            t.contiguous(), SH.P(None, "model"), mesh, (B, V))
+
+    sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" \
+        else (lambda: None)
+    out = {}
+    fault = tp_fam_planted(planted) if planted else None
+    if fault:
+        real = getattr(fault[0], fault[1])
+        setattr(fault[0], fault[1], fault[2])
+    try:
+        with torch.no_grad(), SH.use_rules(rules, mesh):
+            sync()
+            t0 = time.perf_counter()
+            lg = E.make_prefill(cfg)(params, batch)
+            sync()
+            out["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+            out["prefill"] = whole(lg).float().cpu()
+            if fault:
+                return out
+            cache = D.init_cache(cfg, B, TP_FAM["max_len"], device=dev)
+            if mesh is not None:
+                cache = CV.shard_tree(cache, TS.cache_specs(cache, rules,
+                                                            mesh), mesh, dev)
+            if cfg.family == "audio":
+                cache = D.encode_for_decode(params, cache, batch["frames"],
+                                            cfg)
+            step = E.make_serve_step(cfg)
+            tok, logits, toks, ms = batch["tokens"][:, :1], [], [], []
+            calls = {"all_reduce": 0, "all_gather": 0}   # the serve steps'
+            for t in range(TP_FAM["decode_steps"]):
+                lg, _ = D.decode_step(params, cache, tok, t, cfg)
+                sync()
+                before = {k: comm.COUNTS[k]["calls"] for k in calls}
+                t0 = time.perf_counter()
+                tok, cache = step(params, cache, tok, t)
+                sync()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                for k in calls:
+                    calls[k] += comm.COUNTS[k]["calls"] - before[k]
+                logits.append(whole(lg[:, -1]).float().cpu())
+                toks.append(tok[:, 0].cpu())
+            out["decode_calls_per_step"] = {k: v / len(ms)
+                                            for k, v in calls.items()}
+    finally:
+        if fault:
+            setattr(fault[0], fault[1], real)
+    out["logits"], out["tokens"] = torch.stack(logits), torch.stack(toks)
+    out["decode_ms"] = ms
+    return out
+
+
+def _tc_family(arch, exact=False):
+    from repro_torch.training import train_step as TS
+
+    if exact:
+        return TS.TrainConfig(memory_mode="exact",
+                              T=TP_FAMILIES[arch]["exact_T"],
+                              use_kernel=True, grad_clip=DIST["grad_clip"])
+    return TS.TrainConfig(memory_mode="expsum", K=TP_FAM["K"],
+                          acc_dtype=TP_FAMILIES[arch]["acc_dtype"],
+                          use_kernel=True, grad_clip=DIST["grad_clip"])
+
+
+def tp_families_reference(dev, tmp: str, before=None) -> dict:
+    """The one-process units of every family of TP_FAMILIES, in order,
+    saved to ``tmp/fam_<arch>.pt`` for the ranks (``before(arch)`` runs
+    before each family); returns each family's launches, ms and peak."""
+    import torch
+
+    out = {}
+    for arch in TP_FAMILIES:
+        if before is not None:
+            before(arch)
+        t0 = time.perf_counter()
+        ref = {"train": tp_family_train(dev, arch, _tc_family(arch))}
+        if "exact_T" in TP_FAMILIES[arch]:
+            ref["exact"] = tp_family_train(dev, arch, _tc_family(arch, True))
+        ref["serve"] = tp_family_serve(dev, arch)
+        for k in ("train", "exact"):
+            if k in ref:
+                ref[k]["params"] = [t.cpu() for t in ref[k]["params"]]
+        torch.save(ref, os.path.join(tmp, f"fam_{arch}.pt"))
+        open(os.path.join(tmp, f"fam_{arch}.ready"), "w").close()
+        out[arch] = {k: {"launches": v["launches"],
+                         "ms_per_step": v["ms_per_step"],
+                         "peak_bytes": v["peak_bytes"]}
+                     for k, v in ref.items() if k != "serve"}
+        out[arch]["serve"] = {"prefill_ms": ref["serve"]["prefill_ms"],
+                              "decode_ms": ref["serve"]["decode_ms"]}
+        out[arch]["seconds"] = time.perf_counter() - t0
+        del ref
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def _family_vs(mine: dict, ref: dict) -> dict:
+    """A family's train run on the ranks against the one-process run."""
+    import torch
+
+    worst, share = 0.0, 0.0
+    for a, b in zip(mine["params"], ref["params"]):
+        a, b = a.float(), b.to(a.device).float()
+        d = (a - b).abs()
+        rms = torch.sqrt(torch.mean(b * b))
+        worst = max(worst, float((d / (torch.maximum(b.abs(), rms)
+                                       * 2.0 ** -7)).max()))
+        share = max(share, float((d > 0).float().mean()))
+    ok_l, err_l = close_np(mine["losses"], ref["losses"], DIST_LOSS_TOL)
+    ok_c, err_c = close_np([c[0] for c in mine["clips"]],
+                           [c[1] for c in mine["clips"]], TP_NORM_TOL)
+    return {"held": ok_l and ok_c and worst <= DIST_ULPS
+            and mine["replicated_bit_equal"],
+            "losses": mine["losses"], "ref_losses": ref["losses"],
+            "max_abs_loss_diff": err_l, "clip_norms": mine["clips"],
+            "max_abs_clip_norm_diff": err_c, "param_max_ulps": worst,
+            "param_share_differing": share,
+            "replicated_bit_equal": mine["replicated_bit_equal"],
+            "launches": mine["launches"], "n_leaves": mine["n_leaves"],
+            "ms_per_step": mine["ms_per_step"],
+            "ref_ms_per_step": ref["ms_per_step"],
+            "all_reduce_per_step": {k: mine["all_reduce"][k]
+                                    / len(mine["losses"])
+                                    for k in ("calls", "bytes")},
+            "all_gather_per_step": {k: mine["all_gather"][k]
+                                    / len(mine["losses"])
+                                    for k in ("calls", "bytes")},
+            "peak_bytes": mine["peak_bytes"],
+            "ref_peak_bytes": ref["peak_bytes"]}
+
+
+def tp_families_ranks(dev, tmp: str, mesh, rank: int) -> None:
+    """Every family of TP_FAMILIES on this serving rank, in order: the
+    train runs, the serving units and the planted fault, each held
+    against the one-process units in ``tmp`` once they are there; this
+    rank's results to ``tmp/fam_<arch>_r<rank>.json``."""
+    import torch
+
+    on_card = dev.type == "cuda"
+    for arch in TP_FAMILIES:
+        t0 = time.perf_counter()
+        runs = {"train": tp_family_train(dev, arch, _tc_family(arch), mesh)}
+        if "exact_T" in TP_FAMILIES[arch]:
+            runs["exact"] = tp_family_train(dev, arch, _tc_family(arch, True),
+                                            mesh)
+        serve = tp_family_serve(dev, arch, mesh)
+        fault = TP_FAM_PLANTED.get(arch)
+        bad = tp_family_serve(dev, arch, mesh, fault) if fault else None
+        t_run = time.perf_counter() - t0
+        ready = os.path.join(tmp, f"fam_{arch}.ready")
+        while not os.path.exists(ready):
+            time.sleep(0.05)
+        ref = torch.load(os.path.join(tmp, f"fam_{arch}.pt"))
+        res = {k: _family_vs(v, ref[k]) for k, v in runs.items()}
+        want = ref["serve"]
+        ok_p, err_p = close_np(serve["prefill"], want["prefill"],
+                               TP_SERVE_TOL)
+        ok_d, err_d = close_np(serve["logits"], want["logits"], TP_SERVE_TOL)
+        res["serve"] = {
+            "held": ok_p and ok_d and torch.equal(serve["tokens"],
+                                                  want["tokens"]),
+            "prefill_max_abs_err": err_p, "decode_max_abs_err": err_d,
+            "tokens_equal": torch.equal(serve["tokens"], want["tokens"]),
+            "prefill_ms": serve["prefill_ms"],
+            "ref_prefill_ms": want["prefill_ms"],
+            "median_decode_ms": statistics.median(serve["decode_ms"][1:]),
+            "ref_median_decode_ms": statistics.median(
+                want["decode_ms"][1:]),
+            "decode_calls_per_step": serve["decode_calls_per_step"]}
+        if fault:
+            passes, err = close_np(bad["prefill"], want["prefill"],
+                                   TP_SERVE_TOL)
+            res["planted"] = {fault: {"passes_the_check": passes,
+                                      "max_abs_err": err}}
+        res["peak_bytes"] = (torch.cuda.max_memory_allocated(dev)
+                             if on_card else 0)
+        res["run_s"] = t_run
+        res["seconds"] = time.perf_counter() - t0
+        with open(os.path.join(tmp, f"fam_{arch}_r{rank}.json"), "w") as f:
+            json.dump(res, f)
+        del runs, serve, bad, ref
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+
+
+def tp_families_check(tmp: str, ranks: int, ref: dict) -> dict:
+    """The checks of every family's rank results (``tmp``) and the
+    one-process runs' summary ``ref``; returns the families' line and the
+    launches of the paths."""
+    out, launches = {}, {}
+    for arch in TP_FAMILIES:
+        per_rank = []
+        for r in range(ranks):
+            with open(os.path.join(tmp, f"fam_{arch}_r{r}.json")) as f:
+                per_rank.append(json.load(f))
+        for r, res in enumerate(per_rank):
+            tag = f"tensor_parallel {arch} rank {r}"
+            for kind in ("train", "exact"):
+                if kind not in res:
+                    continue
+                x = res[kind]
+                check(x["held"], f"{tag} {kind}: loss {x['max_abs_loss_diff']}"
+                      f", clip norm {x['max_abs_clip_norm_diff']}, "
+                      f"parameters {x['param_max_ulps']} bf16 ulps, "
+                      f"replicated equal {x['replicated_bit_equal']}")
+                steps = TP_FAM["exact_steps" if kind == "exact" else "steps"]
+                key = ("frodo_exact_update" if kind == "exact"
+                       else "frodo_expsum_update")
+                want = {"frodo_exact_update": 0, "frodo_expsum_update": 0,
+                        key: x["n_leaves"] * steps}
+                check(x["launches"] == want, f"{tag} {kind}: launches "
+                      f"{x['launches']}, want {want}")
+            s = res["serve"]
+            check(s["held"], f"{tag} serving f32: prefill "
+                  f"{s['prefill_max_abs_err']}, decode "
+                  f"{s['decode_max_abs_err']}, tokens equal "
+                  f"{s['tokens_equal']}")
+            check(res["peak_bytes"] <= LLM_PEAK_LIMIT,
+                  f"{tag}: peak device memory {res['peak_bytes']}")
+        for name, p in per_rank[0].get("planted", {}).items():
+            check(not all(r["planted"][name]["passes_the_check"]
+                          for r in per_rank),
+                  f"planted {name} passed the check on every rank")
+        for kind in ("train", "exact"):
+            if kind in per_rank[0]:
+                check(ref[arch][kind]["peak_bytes"] <= LLM_PEAK_LIMIT,
+                      f"{arch} one-process {kind}: peak device memory "
+                      f"{ref[arch][kind]['peak_bytes']}")
+                for k, v in (("2ranks", [r[kind]["launches"]
+                                         for r in per_rank]),
+                             ("one_process", [ref[arch][kind]["launches"]])):
+                    tot = launches.setdefault(
+                        f"tensor_parallel_families_{k}",
+                        {"frodo_exact_update": 0, "frodo_expsum_update": 0})
+                    for ln in v:
+                        for n in tot:
+                            tot[n] += ln[n]
+        out[arch] = {"one_process": ref[arch], "per_rank": per_rank}
+    return {"families": out, "launches": launches}
 
 
 def tensor_parallel_phase(dev, ref_dir: str) -> dict:
@@ -3357,6 +3928,17 @@ def tensor_parallel_phase(dev, ref_dir: str) -> dict:
         open(os.path.join(tmp, "ref_exact_ready"), "w").close()
         ref = {dt: tp_serve_run(dev, dt) for dt in ("float32", "bfloat16")}
         torch.cuda.empty_cache()
+
+        def before(arch):
+            # the largest family's one-process state beside its ranks',
+            # not beside the train ranks' as well
+            if arch == MOE_ARCH:
+                while not ctxs[0].join():
+                    pass
+
+        t_fam = time.perf_counter()
+        fam_ref = tp_families_reference(dev, tmp, before)
+        fam_ref_s = time.perf_counter() - t_fam
         for ctx in ctxs:
             while not ctx.join():
                 pass
@@ -3367,6 +3949,21 @@ def tensor_parallel_phase(dev, ref_dir: str) -> dict:
                     proc.terminate()
                 proc.join()
     gemm = row_parallel_gemm(dev)
+    fams = tp_families_check(tmp, n_serve, fam_ref)
+    fam_s = []
+    for r in range(n_serve):
+        with open(os.path.join(tmp, f"families_s{r}.json")) as f:
+            fam_s.append(json.load(f))
+    emit("tensor_parallel.families", nvidia_smi=nvidia_smi(),
+         mesh=TP_SERVE["mesh"], settings=TP_FAM,
+         depth={a: v["n_layers"] for a, v in TP_FAMILIES.items()},
+         acc_dtype={a: v["acc_dtype"] for a, v in TP_FAMILIES.items()},
+         reduced=TP_FAM_REDUCED, grad_clip=DIST["grad_clip"],
+         tol={"loss": DIST_LOSS_TOL, "clip_norm": TP_NORM_TOL,
+              "param_bf16_ulps_of_leaf_rms": DIST_ULPS,
+              "serve_f32": TP_SERVE_TOL, "peak_bytes": LLM_PEAK_LIMIT},
+         ranks_seconds=fam_s, one_process_seconds=fam_ref_s,
+         **fams["families"])
     ranks = []
     for r in range(n_train):
         with open(os.path.join(tmp, f"train{r}.json")) as f:
@@ -3504,7 +4101,8 @@ def tensor_parallel_phase(dev, ref_dir: str) -> dict:
                for k in ranks[0]["exact"]["launches"]}
     return {"launches": {"tensor_parallel_4ranks": total,
                          "tensor_parallel_stacked_exact": stacked_exact,
-                         "tensor_parallel_exact_4ranks": total_x},
+                         "tensor_parallel_exact_4ranks": total_x,
+                         **fams["launches"]},
             "per_rank_expsum": [r["launches"]["frodo_expsum_update"]
                                 for r in ranks],
             "per_rank_exact": [r["exact"]["launches"]["frodo_exact_update"]
@@ -3679,7 +4277,6 @@ def main() -> int:
     # --------------------------- faults, Exp 1 and Exp 3 (their own counts)
     faults_phase(dev)
     launches_exp1 = exp1_phase(dev)
-    launches_exp3 = exp3_phase(dev)
     llm = llm_train_phase(dev)
     llm["launches"]["llm_train_mamba2"] = llm_train_mamba2(dev)
     new = llm_train_moe_mla(dev)
@@ -3688,7 +4285,10 @@ def main() -> int:
     llm["launches"].update(vla["launches"])
     hyb = llm_train_hybrid(dev)
     llm["launches"].update(hyb["launches"])
+    # Exp 3 in a process of its own beside the serving phase
+    e3 = start_phase(exp3_phase)
     serve = serve_phase(dev)
+    launches_exp3 = finish_phase(e3)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     dryrun_dir = os.path.join(tmp, "dryrun_torch")
     dry = dryrun_phase(dev, dryrun_dir, llm["main"])
@@ -3910,4 +4510,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        rc = main()
+    finally:
+        stop_children()
+    sys.exit(rc)

@@ -20,7 +20,10 @@ at the entry of a region whose work is split over the group, and on every
 replicated parameter used inside it; ``reduce_from_model`` (forward an
 all-reduce in f32, rounded once to the input's dtype; backward identity)
 at its exit.  ``all_reduce_max`` serves the vocab-split log-sum-exp and
-argmax.
+argmax.  ``gather_from_model`` (forward an all-gather along one dim,
+backward this rank's slice of the gradient) puts a split activation back
+together where a replicated consumer needs all of it (MLA's latent and its
+output columns).
 
 On the ``meta`` device (the dry-run's shape-only steps) an op is counted
 and not issued: its result has the right shape and no values.
@@ -188,6 +191,26 @@ def reduce_from_model(x: torch.Tensor, group: Any) -> torch.Tensor:
     once to ``x``'s dtype; the backward passes the gradient through (every
     rank holds all of it)."""
     return _ReduceFromModel.apply(x, group)
+
+
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        ctx.rank, ctx.n = rank(group), x.shape[dim]
+        parts = all_gather(x.contiguous(), group)       # (world, ...)
+        return parts.movedim(0, dim).flatten(dim, dim + 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.rank * ctx.n, ctx.n), None, None
+
+
+def gather_from_model(x: torch.Tensor, dim: int, group: Any) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim`` in rank order (one
+    all-gather, exact); the backward takes this rank's slice of the
+    gradient, which every rank holds whole."""
+    return _GatherFromModel.apply(x, dim % x.dim(), group)
 
 
 def all_gather(t: torch.Tensor, group: Any = None) -> torch.Tensor:

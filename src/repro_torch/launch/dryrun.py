@@ -43,7 +43,8 @@ cache and tokens), summed by part, and ``analytic`` as in the one-card
 record.
 
 The collective record: where the port runs the (arch, shape) tensor-
-parallel (the dense family with GQA; train only without the fsdp rule),
+parallel (the dense family with GQA or MLA, vision, MoE and audio; train
+only without the fsdp rule),
 rank 0's step of the shape's unit (``make_train_step``, ``make_prefill``,
 ``make_serve_step``) runs at the shape's full size on ``meta`` tensors
 (its local shards under the specs) under the rules and the mesh, and
@@ -204,13 +205,13 @@ COLL_FACTOR = {"all-gather": 1.0, "all-reduce": 2.0, "reduce-scatter": 1.0,
 def collectives_reason(cfg: ModelConfig, shape: InputShape) -> Optional[str]:
     """None where the port runs (cfg, shape) tensor-parallel and so can
     count its collectives; else why there is no collective record."""
-    if cfg.family != "dense" or cfg.attn_type == "mla":
-        kind = "MLA" if cfg.attn_type == "mla" else f"the {cfg.family} family"
-        return (f"tensor-parallel execution of {kind} waits for ROADMAP "
-                f"queue 1 item 5.1; no collectives to count")
+    if cfg.family in ("ssm", "hybrid"):
+        return (f"tensor-parallel execution of the {cfg.family} family "
+                f"waits for ROADMAP queue 1 item 5.1; no collectives to "
+                f"count")
     if shape.kind == "train" and cfg.fsdp:
         return ("training under the fsdp rule waits for ROADMAP queue 1 "
-                "item 5.1; no collectives to count")
+                "item 5.1.7; no collectives to count")
     return None
 
 

@@ -26,6 +26,16 @@ softmaxes are combined by all-reduces of (max, sum, weighted values).
 MLA (multi-head latent attention, minicpm3) trains in the naive form, the
 latent expanded into per-head K and V, and decodes in the absorbed form
 against a cache of the latent alone; the two round differently in bf16.
+Tensor-parallel, MLA follows the JAX rules' layout: ``q_down``/``kv_down``
+split on their columns, ``q_up``/``kv_up`` on their latent rows (heads
+whole), ``wo_mla`` on its output.  The q latent stays split (its RMS norm
+over every rank's squares); ``kv_down``'s contiguous column blocks may
+straddle the latent and the rope part, so its output is gathered whole;
+the up projections' partial products are summed over the axis; attention
+runs on local heads where the axis divides them (else replicated); the
+output's heads and ``wo_mla``'s columns are gathered.  Decode keeps the
+latent cache split over its slots and combines the spans' softmaxes in
+latent space.
 """
 from __future__ import annotations
 
@@ -276,11 +286,12 @@ def decode_context(pos: torch.Tensor, cache_len: int, cfg: ModelConfig,
 
 
 def _tp_decode_attention(params, x, cache: KVCache, cfg: ModelConfig,
-                         ctx: DecodeContext, tp: SH.ModelAxis,
+                         ctx: DecodeContext, tp: Optional[SH.ModelAxis],
                          seq: Optional[SH.SeqSplit]):
-    """``decode_attention`` with the heads split over the model axis and
-    the cache's slots over ``seq`` (every kv head on each rank): q and the
-    new k/v are gathered for all heads (one all-reduce of a zero-padded
+    """``decode_attention`` with the heads split over the model axis (or
+    whole where ``tp`` is None: the axis does not divide them) and the
+    cache's slots over ``seq`` (every kv head on each rank): q and the new
+    k/v are gathered for all heads (one all-reduce of a zero-padded
     buffer), each rank writes the new slot when it holds it and attends to
     its own span, and the partial softmaxes are combined."""
     B, _, d = x.shape
@@ -300,16 +311,21 @@ def _tp_decode_attention(params, x, cache: KVCache, cfg: ModelConfig,
                          ctx.rope)
     # every head's q, k and v: each rank fills its own heads of a zeroed
     # buffer (k and v only where they are split), summed over the axis
-    parts = [(q, H)] + ([] if G_loc == G else [(k_new, G), (v_new, G)])
-    width = sum(n for _, n in parts)
-    buf = torch.zeros((B, width, hd), dtype=torch.float32, device=x.device)
-    off = 0
-    for t, n in parts:
-        m = t.shape[2]
-        buf[:, off + tp.rank * m:off + (tp.rank + 1) * m] = t[:, 0]
-        off += n
-    buf = comm.all_reduce_sum(buf, tp.group).to(x.dtype)
-    q = buf[:, :H]
+    parts = [] if tp is None else [(q, H)] + (
+        [] if G_loc == G else [(k_new, G), (v_new, G)])
+    if parts:
+        width = sum(n for _, n in parts)
+        buf = torch.zeros((B, width, hd), dtype=torch.float32,
+                          device=x.device)
+        off = 0
+        for t, n in parts:
+            m = t.shape[2]
+            buf[:, off + tp.rank * m:off + (tp.rank + 1) * m] = t[:, 0]
+            off += n
+        buf = comm.all_reduce_sum(buf, tp.group).to(x.dtype)
+        q = buf[:, :H]
+    else:
+        q = q[:, 0]
     if G_loc != G:
         k_new, v_new = buf[:, H:H + G], buf[:, H + G:]
     else:
@@ -344,6 +360,9 @@ def _tp_decode_attention(params, x, cache: KVCache, cfg: ModelConfig,
     else:
         l = p.sum(dim=-1)
     o = (acc / l[..., None]).to(v.dtype).reshape(B, H, hd)
+    if tp is None:             # every head here: the whole output
+        out = o.reshape(B, H * hd) @ params["wo"]["w"].reshape(H * hd, d)
+        return out.view(B, 1, d), KVCache(k, v)
     o = o[:, tp.rank * H_loc:(tp.rank + 1) * H_loc].reshape(B, H_loc * hd)
     out = L.row_parallel(o, params["wo"]["w"].reshape(H_loc * hd, d), tp)
     return out.view(B, 1, d), KVCache(k, v)
@@ -363,9 +382,9 @@ def decode_attention(params, x, cache: KVCache, pos: torch.Tensor,
     written, so a caller can keep the old bytes of rows it does not
     advance."""
     tp = L.split_axis(params["wq"]["w"].shape[-2], cfg.n_heads)
-    if tp is not None:
-        return _tp_decode_attention(params, x, cache, cfg, ctx, tp,
-                                    SH.kv_seq_split())
+    seq = SH.kv_seq_split() if SH.model_axis() is not None else None
+    if tp is not None or seq is not None:
+        return _tp_decode_attention(params, x, cache, cfg, ctx, tp, seq)
     # the products as plain matmuls on views: one token a row makes the
     # host's dispatch the step's cost, and an einsum dispatches several
     # reshapes per product
@@ -435,30 +454,121 @@ def _mla_qkv_latent(params, x, positions, cfg: ModelConfig, tables=None):
     return q_nope, q_rope, c_kv, k_rope
 
 
+def _mla_axis(params, cfg: ModelConfig) -> Optional[SH.ModelAxis]:
+    """The model axis when MLA's latent projections are split over it here
+    (``q_down``/``kv_down`` on their columns, ``q_up``/``kv_up`` on their
+    latent rows, ``wo_mla`` on its output), else None."""
+    m = cfg.mla
+    tp = L.split_axis(params["q_down"]["w"].shape[-1], m.q_lora_rank)
+    kv = L.split_axis(params["kv_down"]["w"].shape[-1],
+                      m.kv_lora_rank + m.qk_rope_dim)
+    if (tp is None) != (kv is None):
+        raise ValueError("MLA's q and kv latents split differently")
+    return tp
+
+
+def _kv_latent(ckv, tp: SH.ModelAxis, r: int):
+    """(the latent (..., r), the rope part (..., rope)) of ``kv_down``'s
+    output, of which ``ckv`` is this rank's contiguous block of columns: a
+    block may hold latent and rope columns both, so every rank takes the
+    whole output (one all-gather)."""
+    full = comm.gather_from_model(ckv, -1, tp.group)
+    return full[..., :r], full[..., r:]
+
+
+def _tp_mla_qkv_latent(params, x, positions, cfg: ModelConfig,
+                       tp: SH.ModelAxis, tables=None):
+    """``_mla_qkv_latent`` on this rank's shards: the q latent stays split
+    (its RMS norm over every rank's squares) and ``q_up``'s partial
+    products are summed over the axis; the kv latent and ``k_rope`` are
+    gathered whole.  Every output is whole on each rank."""
+    m = cfg.mla
+    H, r = cfg.n_heads, m.kv_lora_rank
+    qk = m.qk_nope_dim + m.qk_rope_dim
+    x = comm.copy_to_model(x, tp.group)
+    cq = L.rmsnorm_split(params["q_norm"], x @ params["q_down"]["w"],
+                         cfg.norm_eps)
+    w = params["q_up"]["w"]
+    q = L.row_parallel(cq, w.reshape(w.shape[0], H * qk), tp).reshape(
+        x.shape[:-1] + (H, qk))
+    q_nope, q_rope = q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:]
+    q_rope = L.apply_rope(q_rope, positions, cfg.rope_theta, tables=tables)
+    c_raw, kr_raw = _kv_latent(x @ params["kv_down"]["w"], tp, r)
+    c_kv = L.rmsnorm(params["kv_norm"], c_raw, cfg.norm_eps)
+    k_rope = L.apply_rope(kr_raw[..., None, :], positions, cfg.rope_theta,
+                          tables=tables)[..., 0, :]
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def _latent_rows(c_kv, w, tp: SH.ModelAxis):
+    """This rank's rows of the whole latent ``c_kv`` for ``w``, a leaf split
+    on its latent rows (``kv_up``)."""
+    n = w.shape[0]
+    return c_kv[..., tp.rank * n:(tp.rank + 1) * n]
+
+
+def _tp_mla_attention(params, x, positions, cfg: ModelConfig,
+                      tp: SH.ModelAxis) -> torch.Tensor:
+    """``mla_attention`` on this rank's shards: ``kv_up``'s partial products
+    summed over the axis, attention on the local heads where the axis
+    divides them (else on every head, replicated), then the heads of the
+    output gathered, ``wo_mla``'s columns of it taken here and gathered."""
+    m = cfg.mla
+    H, g = cfg.n_heads, tp.group
+    q_nope, q_rope, c_kv, k_rope = _tp_mla_qkv_latent(params, x, positions,
+                                                      cfg, tp)
+    w = params["kv_up"]["w"]
+    c_loc = _latent_rows(comm.copy_to_model(c_kv, g), w, tp)
+    kv = L.row_parallel(c_loc, w.reshape(w.shape[0], -1), tp).reshape(
+        c_kv.shape[:-1] + (H, m.qk_nope_dim + m.v_head_dim))
+    split = H % tp.size == 0
+    if split:
+        h = H // tp.size
+        heads = slice(tp.rank * h, (tp.rank + 1) * h)
+        q_nope, q_rope, kv = (comm.copy_to_model(t, g)[..., heads, :]
+                              for t in (q_nope, q_rope, kv))
+        k_rope = comm.copy_to_model(k_rope, g)
+    o = _mla_core(q_nope, q_rope, kv, k_rope, positions, cfg, x.shape[-2])
+    if split:
+        o = comm.gather_from_model(o, -2, g)
+    out = torch.einsum("...hk,hkd->...d", comm.copy_to_model(o, g),
+                       params["wo_mla"]["w"])
+    return comm.gather_from_model(out, -1, g)
+
+
+def _mla_core(q_nope, q_rope, kv, k_rope, positions, cfg: ModelConfig,
+              S: int) -> torch.Tensor:
+    """Causal attention of the naive form over the heads of ``q_nope``:
+    (…, S, h, v)."""
+    m = cfg.mla
+    k_nope, v = kv[..., :m.qk_nope_dim], kv[..., m.qk_nope_dim:]
+    k_rope_h = k_rope[..., None, :].expand(k_rope.shape[:-1]
+                                           + (q_nope.shape[-2],
+                                              m.qk_rope_dim))
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope_h], dim=-1)
+    if S <= cfg.attn_direct_max:
+        bias = _mask_bias(positions, positions, True, 0)
+        while bias.dim() < 4:
+            bias = bias[None]
+        return _direct_attn(q, k, v, bias)
+    pos1d = positions.reshape(-1)[-S:] if positions.dim() > 1 else positions
+    return _blockwise_attn(q, k, v, pos1d, pos1d, True, 0, cfg.attn_chunk)
+
+
 def mla_attention(params, x, positions, cfg: ModelConfig) -> torch.Tensor:
     """Train/prefill MLA: expand the latent into per-head K/V (the naive
     form).  v's head dim may differ from q/k's; the softmax scale is
     1/sqrt(nope + rope) on both paths."""
+    tp = _mla_axis(params, cfg)
+    if tp is not None:
+        return _tp_mla_attention(params, x, positions, cfg, tp)
     m = cfg.mla
     H = cfg.n_heads
     q_nope, q_rope, c_kv, k_rope = _mla_qkv_latent(params, x, positions, cfg)
     kv = (c_kv @ params["kv_up"]["w"].reshape(m.kv_lora_rank, -1)).reshape(
         c_kv.shape[:-1] + (H, m.qk_nope_dim + m.v_head_dim))
-    k_nope, v = kv[..., :m.qk_nope_dim], kv[..., m.qk_nope_dim:]
-    k_rope_h = k_rope[..., None, :].expand(k_rope.shape[:-1]
-                                           + (H, m.qk_rope_dim))
-    q = torch.cat([q_nope, q_rope], dim=-1)
-    k = torch.cat([k_nope, k_rope_h], dim=-1)
-    S = x.shape[-2]
-    if S <= cfg.attn_direct_max:
-        bias = _mask_bias(positions, positions, True, 0)
-        while bias.dim() < 4:
-            bias = bias[None]
-        o = _direct_attn(q, k, v, bias)
-    else:
-        pos1d = (positions.reshape(-1)[-S:] if positions.dim() > 1
-                 else positions)
-        o = _blockwise_attn(q, k, v, pos1d, pos1d, True, 0, cfg.attn_chunk)
+    o = _mla_core(q_nope, q_rope, kv, k_rope, positions, cfg, x.shape[-2])
     return torch.einsum("...hk,hkd->...d", o, params["wo_mla"]["w"])
 
 
@@ -500,6 +610,10 @@ def mla_decode(params, x, cache: MLACache, pos: torch.Tensor,
     holds rank + rope_dim numbers a token.  x: (B,1,d); pos: (B,);
     ``ctx``: ``mla_decode_context``.  Returns (out (B,1,d), new cache);
     ``cache`` is not written."""
+    tp = _mla_axis(params, cfg)
+    if tp is not None:
+        return _tp_mla_decode(params, x, cache, pos, cfg, ctx, tp,
+                              SH.kv_seq_split())
     m = cfg.mla
     B, _, d = x.shape
     H, nope, vd = cfg.n_heads, m.qk_nope_dim, m.v_head_dim
@@ -524,3 +638,59 @@ def mla_decode(params, x, cache: MLACache, pos: torch.Tensor,
     out = o.transpose(0, 1).reshape(B, H * vd) @ params["wo_mla"]["w"].view(
         H * vd, d)
     return out.view(B, 1, d), MLACache(c_kv, k_rope)
+
+
+def _tp_mla_decode(params, x, cache: MLACache, pos, cfg: ModelConfig,
+                   ctx: DecodeContext, tp: SH.ModelAxis,
+                   seq: Optional[SH.SeqSplit]):
+    """``mla_decode`` on this rank's shards, the cache's slots split over
+    ``seq``: q and the new latent whole on every rank
+    (``_tp_mla_qkv_latent``), the new slot written by the rank whose span
+    holds it, the absorbed q's latent columns gathered, scores and values
+    taken over the local span in latent space and combined as
+    ``_tp_decode_attention`` combines them, then ``kv_up``'s value rows
+    and ``wo_mla``'s columns as in ``_tp_mla_attention``."""
+    m = cfg.mla
+    B, _, d = x.shape
+    H, nope, g = cfg.n_heads, m.qk_nope_dim, tp.group
+    q_nope, q_rope, c_new, kr_new = _tp_mla_qkv_latent(
+        params, x, pos[:, None], cfg, tp, ctx.rope)
+    S_loc = cache.c_kv.shape[1]
+    lo = 0 if seq is None else seq.index * S_loc
+    local = ctx.slot - lo
+    own = ((local >= 0) & (local < S_loc))[:, None]
+    idx = (ctx.rows, local.clamp(0, S_loc - 1))
+    c_kv = cache.c_kv.index_put(idx, torch.where(
+        own, c_new[:, 0].to(cache.c_kv.dtype), cache.c_kv[idx]))
+    k_rope = cache.k_rope.index_put(idx, torch.where(
+        own, kr_new[:, 0].to(cache.k_rope.dtype), cache.k_rope[idx]))
+    w = params["kv_up"]["w"]                         # (r/m, H, nope + v)
+    w_uk = w[..., :nope].permute(1, 2, 0)            # (H, nope, r/m)
+    w_uv = w[..., nope:].transpose(0, 1)             # (H, r/m, v)
+    q_abs = torch.matmul(q_nope.view(B, H, nope).transpose(0, 1),
+                         w_uk).transpose(0, 1)       # (B, H, r/m)
+    q_abs = comm.gather_from_model(q_abs, -1, g)     # (B, H, r)
+    s_rope = torch.matmul(q_rope.view(B, H, -1), k_rope.transpose(1, 2))
+    s = (torch.matmul(q_abs, c_kv.transpose(1, 2))
+         + s_rope).float()                           # (B, H, T_loc)
+    s = s / np.sqrt(nope + m.qk_rope_dim) + ctx.bias[:, None, lo:lo + S_loc]
+    mx = s.amax(dim=-1)
+    p = torch.exp(s - mx[..., None])
+    acc = torch.matmul(p.to(c_kv.dtype), c_kv).float()   # (B, H, r)
+    if seq is not None:
+        scale = _partial_scale(mx, comm.all_reduce_max(mx.clone(), seq.group))
+        packed = comm.all_reduce_sum(torch.cat(
+            [(p.sum(dim=-1) * scale)[..., None], acc * scale[..., None]],
+            dim=-1), seq.group)
+        l, acc = packed[..., 0], packed[..., 1:]
+    else:
+        l = p.sum(dim=-1)
+    o_lat = (acc / l[..., None]).to(c_kv.dtype)
+    # this rank's latent rows of the values, the partial products in f32
+    o = comm.reduce_from_model(torch.matmul(
+        _latent_rows(o_lat, w, tp).transpose(0, 1).float(), w_uv.float()),
+        g).to(o_lat.dtype)                           # (H, B, v)
+    o = o.transpose(0, 1).reshape(B, -1)
+    out = o @ params["wo_mla"]["w"].reshape(o.shape[-1], -1)
+    return (comm.gather_from_model(out, -1, g).view(B, 1, d),
+            MLACache(c_kv, k_rope))

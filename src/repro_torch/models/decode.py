@@ -32,9 +32,12 @@ the capacity is raised to at least B and no row drops.  Every function
 returns a new cache and leaves the one it was given as it was.
 
 Under ``serve_rules`` on a mesh with a "model" axis wider than 1, the
-dense family (GQA) decodes tensor-parallel (``attention.decode_attention``)
-on each rank's local shards: the cache split as ``cache_specs`` lays it
-out (its slots over "kv_seq"), the logits this rank's vocab columns.
+dense (GQA or MLA), vision, MoE and audio families decode tensor-parallel
+(``attention.decode_attention``, ``attention.mla_decode``, ``moe.moe_mlp``,
+``transformer.cross_attend``) on each rank's local shards: the cache
+split as ``cache_specs`` lays it out (the self-attention and latent
+caches' slots over "kv_seq", the cross K/V over "kv_heads"), the logits
+this rank's vocab columns.
 """
 from __future__ import annotations
 
@@ -144,12 +147,9 @@ def _audio_decode_block(bp, c, x, pos, cfg, ctx):
     x = x + h
     h = L.rmsnorm(p["ln_x"], x, cfg.norm_eps)
     q = torch.einsum("...d,dhk->...hk", h, p["xattn"]["wq"]["w"])
-    bias = torch.zeros((1, 1, 1, bp["cross_k"].shape[1]),
-                       dtype=torch.float32, device=x.device)
-    o = A._direct_attn(q, bp["cross_k"], bp["cross_v"], bias)
-    x = x + torch.einsum("...hk,hkd->...d", o, p["xattn"]["wo"]["w"])
+    x = x + T.cross_attend(p["xattn"], q, bp["cross_k"], bp["cross_v"], cfg)
     h = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
-    return x + L.mlp(p["mlp"], h, cfg.activation), c
+    return x + L.mlp(p["mlp"], h, cfg.activation, cfg.d_ff), c
 
 
 def _ssm_step(bp, c, h, cfg):
@@ -213,6 +213,13 @@ def _scan_over(stacked_p, stacked_c, fn, x):
     return x, TR.unflatten(td_c, [torch.stack(ls) for ls in zip(*outs)])
 
 
+def _cache_len(local: int) -> int:
+    """The whole cache's slots, of which this rank holds ``local``: its
+    span of them when the active rules split them over a model axis."""
+    seq = SH.kv_seq_split() if SH.model_axis() else None
+    return local if seq is None else local * seq.n
+
+
 def _row_positions(pos: Position, batch: int, device) -> torch.Tensor:
     if isinstance(pos, torch.Tensor) and pos.dim() == 1:
         if pos.shape[0] != batch:
@@ -225,7 +232,8 @@ def _row_positions(pos: Position, batch: int, device) -> torch.Tensor:
 
 def _audio_decode(params, cb, x, pos, cfg: ModelConfig, window: int):
     """The decoder stack of one audio step: (x, new ``blocks`` cache)."""
-    ctx = A.decode_context(pos, cb["self"].k.shape[2], cfg, window)
+    ctx = A.decode_context(pos, _cache_len(cb["self"].k.shape[2]), cfg,
+                           window)
     x = x + L.sinusoid_at(pos, cfg.d_model)[:, None].to(x.dtype)
     x, new_self = _scan_over(
         {"p": params["blocks"], "cross_k": cb["cross_k"],
@@ -254,10 +262,7 @@ def decode_step(params, cache, tokens: torch.Tensor, pos: Position,
             def fn(bp, c, h):
                 return _ssm_step(bp, c, h, cfg)
         else:
-            cache_len = TR.leaves(cache["blocks"])[0].shape[2]
-            seq = SH.kv_seq_split() if SH.model_axis() else None
-            if seq is not None:        # this rank's span of the slots
-                cache_len *= seq.n
+            cache_len = _cache_len(TR.leaves(cache["blocks"])[0].shape[2])
             ctx = (A.mla_decode_context if cfg.attn_type == "mla"
                    else A.decode_context)(pos, cache_len, cfg, window)
 

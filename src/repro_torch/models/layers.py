@@ -11,7 +11,9 @@ run tensor-parallel on local shards, as the JAX package's ``shard``
 annotations lay them out: the MLP's up/gate split over "mlp" (column
 parallel) and its down projection's partial sums, each taken in f32,
 all-reduced in f32 and rounded once (row parallel), the embedding and the
-heads split over "vocab".  A layer reads whether its leaf is split from
+heads split over "vocab"; an RMS norm over a split width
+(``rmsnorm_split``, MLA's q latent) sums every rank's squares.  A layer
+reads whether its leaf is split from
 the leaf's local size against the full one (a dim the axis does not divide
 stays whole, as ``sanitize_specs`` leaves it); with no such axis every
 path is the one-device path.
@@ -130,6 +132,28 @@ def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * params["scale"].float()).to(x.dtype)
+
+
+def rmsnorm_split(params: dict, x: torch.Tensor, eps: float = 1e-6
+                  ) -> torch.Tensor:
+    """``rmsnorm`` over a last dim of which ``x`` may hold this rank's
+    contiguous part (the full width is the replicated scale's): the mean
+    square is the f32 sum of every rank's squares over the full width, and
+    each rank scales by its slice of the scale."""
+    scale = params["scale"]
+    tp = split_axis(x.shape[-1], scale.shape[-1])
+    if tp is None:
+        return rmsnorm(params, x, eps)
+    n = x.shape[-1]
+    scale = comm.copy_to_model(scale, tp.group)[tp.rank * n:(tp.rank + 1) * n]
+    xf = x.float()
+    # every rank's squares, summed; each rank's use of the sum is a part of
+    # the work, so its gradient is summed too
+    sq = comm.copy_to_model(comm.reduce_from_model(
+        torch.sum(torch.square(xf), dim=-1, keepdim=True), tp.group),
+        tp.group)
+    y = xf * torch.rsqrt(sq / (n * tp.size) + eps)
+    return (y * scale.float()).to(x.dtype)
 
 
 def rmsnorm_nd(scale: torch.Tensor, x: torch.Tensor,

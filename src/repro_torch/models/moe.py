@@ -33,6 +33,14 @@ buffer (the JAX package's (G, E, C, d) buffer with each expert's groups
 side by side), so the expert products stay one batched matmul over E; the
 combine stays within each group.
 
+Tensor-parallel over the "expert" axis (the JAX rules: ``experts/*``
+split on the expert dim, the router replicated), every rank routes every
+token and builds the whole buffer, runs its E/m experts' rows, combines
+only their terms (in f32) and sums the result over the axis, rounded
+once.  ``copy_to_model`` stands at the entry of the expert region, on the
+buffer and on ``top_w``, not on the router weight: the aux losses are
+computed whole on every rank, so the router's gradient is whole there.
+
 Aux losses: load balance (Switch-style) and router z-loss, returned for
 the trainer to add.
 """
@@ -44,6 +52,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import comm
 from repro_torch.models import layers as L
 
 
@@ -80,6 +89,14 @@ def _capacity(n_tokens: int, m) -> int:
     return max(8, int(np.ceil(c / 8)) * 8)
 
 
+def _expert_counts(e: torch.Tensor, E: int) -> torch.Tensor:
+    """``bincount(e, minlength=E)`` for expert ids below E, exact, by an
+    integer scatter-add (which, unlike ``bincount``, also runs on the
+    ``meta`` device: the dry-run's shape-only steps)."""
+    return torch.zeros(E, dtype=torch.long, device=e.device).scatter_add_(
+        0, e, torch.ones_like(e))
+
+
 def _dispatch_one(xt, top_e, E: int, k: int, C: int):
     """Sort-based dispatch of one token group.  xt: (n, d); top_e: (n, k).
     Returns the (E, C, d) buffer, each assignment's buffer row ``dest``
@@ -88,7 +105,7 @@ def _dispatch_one(xt, top_e, E: int, k: int, C: int):
     dev = xt.device
     flat_e = top_e.reshape(-1)                             # (n*k,)
     order = torch.sort(flat_e, stable=True).indices
-    counts = torch.bincount(flat_e, minlength=E)           # tokens per expert
+    counts = _expert_counts(flat_e, E)                     # tokens per expert
     starts = torch.cumsum(counts, 0) - counts              # offset per expert
     rank_sorted = torch.arange(n * k, device=dev) - starts[flat_e[order]]
     pos_in_e = torch.empty_like(rank_sorted).index_put_((order,),
@@ -146,34 +163,55 @@ def moe_mlp(params: dict, x: torch.Tensor, cfg: ModelConfig,
         for g, (_, dest, keep, _) in enumerate(parts)])
     keep = torch.cat([p[2] for p in parts])
 
-    # ---- batched expert MLP: (E, G*C, d) x (E, d, ff)
     ex = params["experts"]
+    tp = L.split_axis(ex["gate"].shape[0], E)
+    w = top_w.reshape(-1)
+    R = E * G * C
+    if tp is not None:
+        # this rank's experts: rows [lo, lo + R_loc) of the buffer, whose
+        # gradient (and top_w's) each rank holds a part of
+        R_loc = R // tp.size
+        lo = tp.rank * R_loc
+        buf = comm.copy_to_model(buf, tp.group)[tp.rank * (E // tp.size):
+                                                (tp.rank + 1) * (E // tp.size)]
+        w = comm.copy_to_model(w, tp.group)
+        keep = keep & (rows >= lo) & (rows < lo + R_loc)
+        rows, R = rows - lo, R_loc
+
+    # ---- batched expert MLP: (E, G*C, d) x (E, d, ff)
     h = L.activation(cfg.activation)(torch.bmm(buf, ex["gate"])) \
         * torch.bmm(buf, ex["up"])
     out_buf = torch.bmm(h, ex["down"])                     # (E, G*C, d)
 
     # ---- gather back and combine (within each group: a token's k rows
     # are its group's), term by term in assignment order
-    R = E * G * C
-    gathered = out_buf.reshape(R, d)[torch.clamp(rows, max=R - 1)]
+    gathered = out_buf.reshape(R, d)[torch.clamp(rows, 0, R - 1)]
     gathered = torch.where(keep[:, None], gathered,
                            torch.zeros((), dtype=gathered.dtype,
                                        device=x.device))
-    terms = (gathered * top_w.reshape(-1)[:, None].to(gathered.dtype)
-             ).reshape(N, k, d)
-    out = terms[:, 0]
-    for j in range(1, k):
-        out = out + terms[:, j]
+    if tp is not None:
+        # the local experts' terms in f32, summed over the axis, rounded
+        # once
+        terms = (gathered.float() * w[:, None]).reshape(N, k, d)
+        out = terms.sum(dim=1)
+        out = comm.reduce_from_model(out, tp.group)
+    else:
+        terms = (gathered * w[:, None].to(gathered.dtype)).reshape(N, k, d)
+        out = terms[:, 0]
+        for j in range(1, k):
+            out = out + terms[:, j]
     out = out.reshape(B, S, d).to(x.dtype)
 
     if "shared" in params:
-        out = out + L.mlp(params["shared"], x, cfg.activation)
+        m_sh = cfg.moe
+        out = out + L.mlp(params["shared"], x, cfg.activation,
+                          m_sh.shared_d_ff or m_sh.expert_d_ff)
 
     if not with_aux:
         return out, None
     # ---- aux losses (f32)
     me = probs.mean(dim=0)                                 # mean router prob
-    ce = torch.bincount(top_e.reshape(-1), minlength=E).float() / (N * k)
+    ce = _expert_counts(top_e.reshape(-1), E).float() / (N * k)
     load_balance = E * torch.sum(me * ce)
     z_loss = torch.mean(torch.square(torch.logsumexp(logits, dim=-1)))
     aux = m.router_aux_weight * (load_balance + 0.001 * z_loss)

@@ -20,11 +20,13 @@ optimizer, the clip and the consensus act leaf by leaf on whole stacks.
 runs under ``torch.utils.checkpoint`` (a hybrid group, as in the JAX
 package, is one checkpointed unit).
 
-Under an active mesh with a "model" axis wider than 1 the dense family
-(GQA) runs tensor-parallel on each rank's local shards: the residual
-stream ("embed") replicated, attention and the MLP split over the axis,
+Under an active mesh with a "model" axis wider than 1 the dense (GQA or
+MLA), vision, MoE and audio families run tensor-parallel on each rank's
+local shards: the residual stream ("embed") replicated, attention (self
+and cross) and the MLP split over the axis, MoE's experts over "expert",
 the embedding and the head over "vocab" (``forward`` then returns this
-rank's columns of the logits).  Every other family raises there.
+rank's columns of the logits); the patch scatter writes the replicated
+stream.  The SSM and hybrid families raise there.
 """
 from __future__ import annotations
 
@@ -37,6 +39,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch import tree as TR
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import comm
 from repro_torch.distributed import sharding as SH
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
@@ -132,17 +135,16 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, lead: tuple = (),
 # ---------------------------------------------------------------- forward
 
 def require_tp_support(cfg: ModelConfig) -> None:
-    """Raise when a model axis wider than 1 is active and ``cfg`` is not
-    of the family that runs tensor-parallel (dense, GQA)."""
+    """Raise when a model axis wider than 1 is active and ``cfg`` is of a
+    family that does not run tensor-parallel yet (SSM, hybrid)."""
     if SH.model_axis() is None:
         return
-    if cfg.family != "dense" or cfg.attn_type == "mla":
-        kind = "MLA" if cfg.attn_type == "mla" else cfg.family
+    if cfg.family in ("ssm", "hybrid"):
         raise NotImplementedError(
             f"{cfg.arch_id}: tensor-parallel execution over the model axis "
-            f"covers the dense family with GQA; the {kind} family waits "
-            f"for ROADMAP queue 1 item 5.1 (run it with a model axis of "
-            f"1)")
+            f"covers the dense, vision, MoE and audio families; the "
+            f"{cfg.family} family waits for ROADMAP queue 1 item 5.1 (run "
+            f"it with a model axis of 1)")
 
 
 def _dense_block(bp, x, positions, cfg: ModelConfig, window: int,
@@ -221,7 +223,10 @@ def _scan_blocks(stacked, fn, x, remat):
 
 
 def _sinusoids(n: int, x: torch.Tensor) -> torch.Tensor:
-    """The (n, d) sinusoidal position table in ``x``'s dtype and device."""
+    """The (n, d) sinusoidal position table in ``x``'s dtype and device
+    (its shape alone on ``meta``)."""
+    if x.is_meta:
+        return x.new_empty((n, x.shape[-1]))
     return torch.from_numpy(L.sinusoidal_positions(n, x.shape[-1])).to(
         device=x.device, dtype=x.dtype)
 
@@ -320,26 +325,47 @@ def _decoder_forward(params, x, enc, positions, cfg: ModelConfig, remat):
         hh = L.rmsnorm(bp["ln1"], h, cfg.norm_eps)
         h = h + A.self_attention(bp["attn"], hh, positions, cfg, causal=True)
         hh = L.rmsnorm(bp["ln_x"], h, cfg.norm_eps)
-        h = h + _cross_attention(bp["xattn"], hh, enc)
+        h = h + _cross_attention(bp["xattn"], hh, enc, cfg)
         hh = L.rmsnorm(bp["ln2"], h, cfg.norm_eps)
-        return h + L.mlp(bp["mlp"], hh, cfg.activation), 0.0
+        return h + L.mlp(bp["mlp"], hh, cfg.activation, cfg.d_ff), 0.0
 
     return _scan_blocks(params["blocks"], dec_block, x, remat)
 
 
 def cross_kv(p, enc):
     """Cross attention's K and V of the encoder output: (..., n_frames, G,
-    hd) each."""
+    hd) each (this rank's kv heads where ``wk``/``wv`` are split)."""
     return (torch.einsum("...d,dgk->...gk", enc, p["wk"]["w"]),
             torch.einsum("...d,dgk->...gk", enc, p["wv"]["w"]))
 
 
-def _cross_attention(p, x, enc):
-    """Direct attention of every decoder position over every frame (a zero
-    bias: nothing is masked)."""
+def cross_attend(p, q, k, v, cfg: ModelConfig) -> torch.Tensor:
+    """Direct attention of every query over every frame (a zero bias:
+    nothing is masked), then the output projection: q (..., S, h, hd), k/v
+    (..., F, g, hd) for ``p``'s local heads.  Split over the model axis,
+    whole kv heads serve each local q head its group, and ``wo``'s partial
+    sums over the local heads are all-reduced."""
+    tp = L.split_axis(p["wq"]["w"].shape[-2], cfg.n_heads)
+    if tp is not None and k.shape[-2] == cfg.n_kv_heads:
+        k, v = A._local_kv_groups(k, v, tp, q.shape[-2], cfg)
+    bias = torch.zeros((1, 1, q.shape[-3], k.shape[-3]),
+                       dtype=torch.float32, device=q.device)
+    o = A._direct_attn(q, k, v, bias)
+    if tp is None:
+        return torch.einsum("...hk,hkd->...d", o, p["wo"]["w"])
+    wo = p["wo"]["w"]
+    return L.row_parallel(o.reshape(o.shape[:-2] + (-1,)),
+                          wo.reshape(-1, wo.shape[-1]), tp)
+
+
+def _cross_attention(p, x, enc, cfg: ModelConfig):
+    """Every decoder position over every frame; on the local heads where
+    the heads are split over the model axis (the decoder stream and the
+    encoder output replicated)."""
+    tp, p, _ = A._tp_params(p, cfg)
+    if tp is not None:
+        x = comm.copy_to_model(x, tp.group)
+        enc = comm.copy_to_model(enc, tp.group)
     q = torch.einsum("...d,dhk->...hk", x, p["wq"]["w"])
     k, v = cross_kv(p, enc)
-    bias = torch.zeros((1, 1, x.shape[-2], enc.shape[-2]),
-                       dtype=torch.float32, device=x.device)
-    o = A._direct_attn(q, k, v, bias)
-    return torch.einsum("...hk,hkd->...d", o, p["wo"]["w"])
+    return cross_attend(p, q, k, v, cfg)

@@ -9,7 +9,8 @@ and ``generate()`` is a blocking wrapper over its ``submit``/``poll``
 lifecycle.
 
 Under ``use_rules(serve_rules(...), mesh)`` with a "model" axis wider
-than 1, the two units run the dense family tensor-parallel on each rank's
+than 1, the two units run tensor-parallel (every family but the SSM and
+hybrid ones) on each rank's
 local shards (parameters under ``param_specs``, the cache under
 ``cache_specs``, the batch's rows under ``batch_specs_serve``):
 ``make_prefill`` returns this rank's vocab columns of the last logits,

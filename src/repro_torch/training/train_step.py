@@ -24,7 +24,8 @@ hierarchical schedule's Kronecker factors included, through
 run's to f32 rounding (bit for bit at one rank).
 
 **Tensor-parallel.**  Built under ``use_rules(build_rules(...), mesh)``
-with a mesh whose "model" axis is wider than 1 (the dense family only),
+with a mesh whose "model" axis is wider than 1 (the dense, vision, MoE
+and audio families; not the SSM or hybrid ones),
 every rank holds its local shard of each leaf of the state under
 ``train_state_specs`` (``repro_torch.convert`` cuts them) and the batch of
 its agents; the agents go over the rules' agent axes (the "data" group,

@@ -4,14 +4,19 @@ roofline's link term.
 * The counts the dry-run takes on ``meta`` tensors in a ``fake`` world
   equal ``comm.COUNTS`` of the same units run for real on two gloo ranks
   at (1, 2): h2o-danube-1.8b's smoke config, a train step, a prefill and a
-  decode step at small shapes.
+  decode step at small shapes; and one unit each of the vision, MLA, MoE
+  and audio families' smoke configs (``FAMILY_UNITS``).
 * A production-mesh record of a dense (arch, shape) carries the JAX
   dry-run's keys (``collectives``: ``bytes_by_kind``, ``counts``,
   ``effective_bytes_per_device`` under its ring factors;
   ``extrapolated.collective_*``; ``analytic``), its depth extrapolation
   equals the full-depth count, and the roofline's link term is its
   effective bytes over NVLink's rate; a record of another family holds
-  ``collectives: null`` with a reason and no link term.
+  ``collectives: null`` with a reason and no link term.  One production
+  record of each of the four families (``FAMILY_RECORDS``) carries
+  collectives whose extrapolation from 2 and 3 layers equals the
+  full-depth count (whisper's from 2 and 3 layers of each of its two
+  stacks), and a link term.
 """
 import ast
 import json
@@ -38,17 +43,38 @@ SHAPES = [InputShape("tiny_train", 16, 4, "train"),
 TC = dataclasses.replace(DR.TRAIN_CONFIG, use_kernel=False)
 
 
-def smoke():
-    return REG.get_smoke_config("h2o-danube-1.8b")
+#: one unit of each family that runs tensor-parallel since the dense one:
+#: arch -> the shape of SHAPES it runs at
+FAMILY_UNITS = {"phi-3-vision-4.2b": "tiny_prefill", "minicpm3-4b": "tiny_train",
+                "qwen3-moe-30b-a3b": "tiny_decode", "whisper-tiny": "tiny_train"}
+#: one production record of each, at a shape whose rules put no fsdp axis
+#: wider than 1 (whisper's prefill runs both of its stacks)
+FAMILY_RECORDS = {"phi-3-vision-4.2b": "train_4k", "minicpm3-4b": "decode_32k",
+                  "qwen3-moe-30b-a3b": "prefill_32k",
+                  "whisper-tiny": "prefill_32k"}
+
+
+def smoke(arch="h2o-danube-1.8b"):
+    return REG.get_smoke_config(arch)
+
+
+def family_counts(mesh, device="meta"):
+    shapes = {s.name: s for s in SHAPES}
+    return {arch: DR.count_collectives(smoke(arch), shapes[name], mesh,
+                                       False, TC, device)
+            for arch, name in FAMILY_UNITS.items()}
 
 
 def _rank_counts(rank, world, out_dir):
     mesh = ML.make_host_mesh(2)
     got = {s.name: DR.count_collectives(smoke(), s, mesh, False, TC, "cpu")
            for s in SHAPES}
+    fams = family_counts(mesh, "cpu")
     if rank == 0:
         with open(os.path.join(out_dir, "real.json"), "w") as f:
             json.dump(got, f)
+        with open(os.path.join(out_dir, "families.json"), "w") as f:
+            json.dump(fams, f)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -60,10 +86,15 @@ def one_thread():
 
 
 @pytest.fixture(scope="module")
-def real(tmp_path_factory):
+def gloo_run(tmp_path_factory):
     d = str(tmp_path_factory.mktemp("tp_dryrun"))
     comm.spawn(_rank_counts, 2, d, store_dir=d, threads=1)
-    with open(os.path.join(d, "real.json")) as f:
+    return d
+
+
+@pytest.fixture(scope="module")
+def real(gloo_run):
+    with open(os.path.join(gloo_run, "real.json")) as f:
         return json.load(f)
 
 
@@ -75,6 +106,23 @@ def test_meta_counts_equal_a_real_gloo_run(real):
     assert json.loads(json.dumps(meta)) == real
     for s in SHAPES:
         assert real[s.name]["counts"]["all-reduce"] > 0
+
+
+@pytest.fixture(scope="module")
+def family_meta():
+    with ML.fake_world(2):
+        return json.loads(json.dumps(family_counts(ML.make_host_mesh(2))))
+
+
+@pytest.mark.parametrize("arch", FAMILY_UNITS)
+def test_family_meta_counts_equal_a_real_gloo_run(gloo_run, family_meta,
+                                                   arch):
+    with open(os.path.join(gloo_run, "families.json")) as f:
+        real = json.load(f)[arch]
+    assert family_meta[arch] == real
+    assert real["counts"]["all-reduce"] > 0
+    if arch == "minicpm3-4b":       # the latent and the output gathered
+        assert real["counts"]["all-gather"] > 0
 
 
 def jax_coll_factor():
@@ -93,6 +141,8 @@ def records(tmp_path_factory):
     out = str(tmp_path_factory.mktemp("tp_records"))
     recs = DR.run_mesh(["h2o-danube-1.8b", "mamba2-780m"], ["decode_32k"],
                        False, out)
+    recs += [r for arch, shape in FAMILY_RECORDS.items()
+             for r in DR.run_mesh([arch], [shape], False, out)]
     return {r["arch"]: r for r in recs}, out
 
 
@@ -129,3 +179,15 @@ def test_records_carry_the_jax_keys_and_the_link_term(records):
            if l.startswith("| mamba2-780m | decode_32k | 16x16")]
     assert len(row) == 1 and "| n/a |" in row[0]
     assert np.isfinite(t["step_time_bound_s"])
+
+
+@pytest.mark.parametrize("arch", FAMILY_RECORDS)
+def test_family_records_carry_collectives_and_extrapolate(records, arch):
+    recs, _ = records
+    r = recs[arch]
+    assert r["status"] == "ok" and r["shape"] == FAMILY_RECORDS[arch]
+    coll, ext = r["collectives"], r["extrapolated"]
+    assert coll["counts"]["all-reduce"] > 0
+    # per-layer collectives affine in depth, whisper's two stacks included
+    assert ext["collective_bytes_by_kind"] == coll["bytes_by_kind"]
+    assert RF.roofline_terms(r)["t_link_s"] > 0

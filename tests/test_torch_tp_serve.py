@@ -16,8 +16,8 @@ which wraps), each rank holding its span of the slots:
 
 Logits agree to atol 1e-5 and the greedy tokens are equal.  Combining the
 spans' partial softmaxes without rescaling them to the common max (the
-planted fault) misses.  The SSM and MLA families raise under a model axis
-of 2.  The JAX subprocess and the two worlds of ranks run at the same
+planted fault) misses.  The SSM and hybrid families raise under a model
+axis of 2.  The JAX subprocess and the two worlds of ranks run at the same
 time.
 """
 import json
@@ -176,7 +176,7 @@ def _rank_serve(rank, world, d):
     if world == 2:
         mesh = ML.make_host_mesh(2)
         out["planted"] = serve("m2", d, mesh, planted=True)
-        for arch in ("mamba2-780m", "minicpm3-4b"):
+        for arch in ("mamba2-780m", "recurrentgemma-9b"):
             cfg = REG.get_smoke_config(arch)
             with SH.use_rules(TS.serve_rules(cfg, False, 4, mesh), mesh):
                 try:
@@ -252,5 +252,5 @@ def test_other_families_raise_under_a_model_axis(runs):
         raised = json.load(f)
     assert len(raised) == 2
     assert "mamba2-780m" in raised[0] and "ssm" in raised[0]
-    assert "minicpm3-4b" in raised[1] and "MLA" in raised[1]
+    assert "recurrentgemma-9b" in raised[1] and "hybrid" in raised[1]
     assert all("5.1" in r for r in raised)
