@@ -205,10 +205,6 @@ COLL_FACTOR = {"all-gather": 1.0, "all-reduce": 2.0, "reduce-scatter": 1.0,
 def collectives_reason(cfg: ModelConfig, shape: InputShape) -> Optional[str]:
     """None where the port runs (cfg, shape) tensor-parallel and so can
     count its collectives; else why there is no collective record."""
-    if cfg.family in ("ssm", "hybrid"):
-        return (f"tensor-parallel execution of the {cfg.family} family "
-                f"waits for ROADMAP queue 1 item 5.1; no collectives to "
-                f"count")
     if shape.kind == "train" and cfg.fsdp:
         return ("training under the fsdp rule waits for ROADMAP queue 1 "
                 "item 5.1.7; no collectives to count")

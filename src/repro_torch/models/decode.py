@@ -31,13 +31,15 @@ routes each row alone, where a token's k distinct experts always fit, so
 the capacity is raised to at least B and no row drops.  Every function
 returns a new cache and leaves the one it was given as it was.
 
-Under ``serve_rules`` on a mesh with a "model" axis wider than 1, the
-dense (GQA or MLA), vision, MoE and audio families decode tensor-parallel
-(``attention.decode_attention``, ``attention.mla_decode``, ``moe.moe_mlp``,
-``transformer.cross_attend``) on each rank's local shards: the cache
-split as ``cache_specs`` lays it out (the self-attention and latent
-caches' slots over "kv_seq", the cross K/V over "kv_heads"), the logits
-this rank's vocab columns.
+Under ``serve_rules`` on a mesh with a "model" axis wider than 1, every
+family decodes tensor-parallel (``attention.decode_attention``,
+``attention.mla_decode``, ``moe.moe_mlp``, ``transformer.cross_attend``,
+``ssm.mamba_decode``, ``rglru.rglru_decode``) on each rank's local
+shards: the cache split as ``cache_specs`` lays it out (the
+self-attention, local-attention and latent caches' slots over "kv_seq",
+the cross K/V over "kv_heads", the SSM state over heads, the conv windows
+and the RG-LRU state over their channels), the logits this rank's vocab
+columns.
 """
 from __future__ import annotations
 
@@ -167,13 +169,13 @@ def _hybrid_sub_step(sp, c, x, kind, pos, cfg, ctx):
         h, c = A.decode_attention(sp["mix"], h, c, pos, cfg, ctx)
     x = x + h
     h = L.rmsnorm(sp["ln2"], x, cfg.norm_eps)
-    return x + L.mlp(sp["mlp"], h, cfg.activation), c
+    return x + L.mlp(sp["mlp"], h, cfg.activation, cfg.d_ff), c
 
 
 def _hybrid_decode(params, cache, x, pos, cfg: ModelConfig):
     """The groups, then the rec tail, of one hybrid step: (x, new cache).
     The local attention rings over the config's local window."""
-    ring = cache["groups"]["attn"].k.shape[2]
+    ring = _cache_len(cache["groups"]["attn"].k.shape[2])
     ctx = A.decode_context(pos, ring, cfg, cfg.hybrid.local_window)
 
     def group(bp, c, h):
@@ -246,7 +248,6 @@ def decode_step(params, cache, tokens: torch.Tensor, pos: Position,
                 cfg: ModelConfig, window_override: Optional[int] = None):
     """tokens: (B, 1) int; pos: the current position, an int for every row
     or one per row (B,).  Returns (logits (B,1,V) float32, new cache)."""
-    T.require_tp_support(cfg)
     window = cfg.window if window_override is None else window_override
     per_row = isinstance(pos, torch.Tensor) and pos.dim() == 1
     pos = _row_positions(pos, tokens.shape[0], tokens.device)

@@ -20,15 +20,31 @@ and the recurrent state stay float32 whatever ``param_dtype`` says.  The
 block's conv runs in the parameter dtype as the JAX code writes it (a sum
 of W products, rounded after each term in bf16); the decode's conv runs in
 float32, so in bf16 the two paths part by the conv's rounding.
+
+Under an active mesh whose "model" axis is wider than 1 the block runs
+tensor-parallel on each rank's local shards, as the JAX package's rules
+lay them out: ``in_x``, ``in_gate``, the conv and the gates ``rg_wa``/
+``rg_wx`` split on their ``d_rnn`` output channels (the JAX code shards
+the post-conv ``xc`` over "mlp"), ``out`` on its rows.  The gates read the
+whole ``xc``: it is gathered (one exact all-gather, in float32) through
+``copy_to_model``, since each rank's gates read all of it; ``i * x`` takes
+the rank's own channels.  The scan is per channel and runs on the local
+channels alone, ``lambda`` and the conv bias (replicated) give each rank
+its slice, and ``out``'s partial products are summed
+(``layers.row_parallel``).  The decode caches (the state and the conv
+window) are split over ``d_rnn`` as ``cache_specs`` lays them out, which
+is each rank's own channels.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import comm
+from repro_torch.distributed import sharding as SH
 from repro_torch.models import layers as L
 
 _C = 8.0
@@ -65,12 +81,24 @@ def rglru_init(gen: torch.Generator, cfg: ModelConfig, lead: tuple = (),
     }
 
 
-def _gates(params, x: torch.Tensor):
-    """x: (..., dr) post-conv branch -> (log_a, gated input), float32."""
+def _local(t: torch.Tensor, tp: Optional[SH.ModelAxis]) -> torch.Tensor:
+    """This rank's channels of a replicated per-channel leaf."""
+    if tp is None:
+        return t
+    n = t.shape[-1] // tp.size
+    return comm.copy_to_model(t, tp.group)[..., tp.rank * n:(tp.rank + 1) * n]
+
+
+def _gates(params, x: torch.Tensor, tp: Optional[SH.ModelAxis] = None):
+    """x: (..., dr) post-conv branch (this rank's channels where ``tp``
+    is given) -> (log_a, gated input), float32, over the same channels."""
     xf = x.float()
-    r = torch.sigmoid(xf @ params["rg_wa"]["w"].float())
-    i = torch.sigmoid(xf @ params["rg_wx"]["w"].float())
-    log_a = -_C * L.softplus(params["lambda"]) * r
+    # the gates read every channel of x
+    xa = xf if tp is None else comm.copy_to_model(
+        comm.gather_from_model(xf, -1, tp.group), tp.group)
+    r = torch.sigmoid(xa @ params["rg_wa"]["w"].float())
+    i = torch.sigmoid(xa @ params["rg_wx"]["w"].float())
+    log_a = -_C * L.softplus(_local(params["lambda"], tp)) * r
     a2 = torch.exp(2 * log_a)
     gated = torch.sqrt(torch.clamp(1.0 - a2, min=1e-12)) * (i * xf)
     return log_a, gated
@@ -120,32 +148,47 @@ def _conv_step(cache_conv, x_t, w, b):
     return out.to(x_t.dtype), new_conv
 
 
+def _split(params, cfg: ModelConfig) -> Optional[SH.ModelAxis]:
+    """The model axis when ``d_rnn`` is split over it here, else None."""
+    return L.split_axis(params["in_x"]["w"].shape[-1], _d_rnn(cfg))
+
+
+def _out(params, y: torch.Tensor, tp: Optional[SH.ModelAxis]):
+    if tp is None:
+        return y @ params["out"]["w"]
+    return L.row_parallel(y, params["out"]["w"], tp)
+
+
 def rglru_block(params: dict, u: torch.Tensor,
                 cfg: ModelConfig) -> torch.Tensor:
     """Full-sequence recurrent block. u: (B, S, d_model)."""
+    tp = _split(params, cfg)
+    if tp is not None:
+        u = comm.copy_to_model(u, tp.group)
     x = u @ params["in_x"]["w"]
     gate = L._gelu(u @ params["in_gate"]["w"])
     w = params["conv"]["w"]
     W, S = w.shape[0], x.shape[1]
     xp = F.pad(x, (0, 0, W - 1, 0))
     xc = sum(xp[:, i:i + S] * w[i] for i in range(W))
-    xc = xc + params["conv"]["b"]
-    log_a, b = _gates(params, xc)
+    xc = xc + _local(params["conv"]["b"], tp)
+    log_a, b = _gates(params, xc, tp)
     h = _linear_scan(log_a, b)                          # (B,S,dr) fp32
     y = h.to(u.dtype) * gate
-    return y @ params["out"]["w"]
+    return _out(params, y, tp)
 
 
 def rglru_decode(params: dict, u: torch.Tensor, cache: RGLRUCache,
                  cfg: ModelConfig):
     """One-token step. u: (B,1,d_model).  Returns (out (B,1,d), new
     cache); ``cache`` is not written."""
+    tp = _split(params, cfg)
     u2 = u[:, 0]
     x = u2 @ params["in_x"]["w"]
     gate = L._gelu(u2 @ params["in_gate"]["w"])
     xc, new_conv = _conv_step(cache.conv, x, params["conv"]["w"],
-                              params["conv"]["b"])
-    log_a, b = _gates(params, xc)
+                              _local(params["conv"]["b"], tp))
+    log_a, b = _gates(params, xc, tp)
     h = torch.exp(log_a) * cache.h + b
     y = (h.to(u.dtype) * gate)[:, None]
-    return y @ params["out"]["w"], RGLRUCache(h, new_conv)
+    return _out(params, y, tp), RGLRUCache(h, new_conv)

@@ -15,16 +15,40 @@ the rounding and the intermediates' sizes do not depend on what is
 installed.  ``A_log``, ``D`` and ``dt_bias``, the softplus of ``dt``, the
 decode conv and the recurrent state stay float32 whatever ``param_dtype``
 says.
+
+Under an active mesh whose "model" axis is wider than 1 the mixer runs
+tensor-parallel on each rank's local shards, as the JAX package's rules
+lay them out: ``in_proj``'s columns and the conv's channels split over
+"mlp", each rank's heads (the JAX code shards ``x`` over "mlp" on its head
+dim) and their ``d_inner`` channels, and ``out_proj``'s rows.  The three
+splits do not line up: a rank's block of the concatenated ``z|x|B|C|dt``
+columns straddles the parts, and its block of conv channels is not its
+heads' (B and C, which every head reads, sit on the last rank).  So the
+projection's output is gathered whole (one exact all-gather), and so is
+the conv weight; each rank then takes what its heads read: their z, x and
+dt channels and every B and C channel, the conv over those channels, and
+its slice of the replicated ``A_log``, ``D``, ``dt_bias`` and conv bias.
+Each gathered or replicated tensor of which the ranks read different parts
+goes through ``copy_to_model``, so the backward sums the ranks' gradients
+before a split leaf takes its slice.  The SSD scan runs on the local heads
+alone; the gated norm is taken over the full ``d_inner``
+(``layers.rmsnorm_split``) and ``out_proj``'s partial products are summed
+(``layers.row_parallel``).  Decode keeps the conv window in the cache's
+layout (``cache_specs``: this rank's block of conv channels): each step
+gathers the window whole, convolves the channels its heads read, and keeps
+its own block of the new window; the SSM state is split over heads.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import comm
+from repro_torch.distributed import sharding as SH
 from repro_torch.models import layers as L
 
 
@@ -150,15 +174,93 @@ def mamba_init_cache(cfg: ModelConfig, batch: int, dtype, lead: tuple = (),
                     dtype=dtype, device=device))
 
 
-def _split_proj(params, u, cfg: ModelConfig):
+class _Part(NamedTuple):
+    """This rank's part of the mixer: its heads ``[h0, h0 + nh)`` and their
+    channels ``[c0, c0 + nc)`` of ``d_inner`` (every head, with ``tp``
+    None, off a model axis)."""
+    tp: Optional[SH.ModelAxis]
+    h0: int
+    nh: int
+    c0: int
+    nc: int
+
+
+def _part(params, cfg: ModelConfig) -> _Part:
+    di, H, P = _d_inner(cfg), _n_heads(cfg), cfg.ssm.head_dim
+    tp = L.split_axis(params["out_proj"]["w"].shape[-2], di)
+    if tp is None:
+        return _Part(None, 0, H, 0, di)
+    if H % tp.size or cfg.ssm.n_groups != 1:
+        raise ValueError(f"{cfg.arch_id}: tensor-parallel mamba2 splits "
+                         f"{H} heads of one B/C group over {tp.size} ranks "
+                         f"(n_groups {cfg.ssm.n_groups})")
+    nh = H // tp.size
+    return _Part(tp, tp.rank * nh, nh, tp.rank * nh * P, nh * P)
+
+
+def _whole(t: torch.Tensor, full: int, part: _Part) -> torch.Tensor:
+    """``t`` with its last dim of ``full`` whole on every rank (gathered
+    where it holds this rank's block), through ``copy_to_model``: the
+    ranks read different parts of it, so the backward sums their
+    gradients before a split leaf takes its slice."""
+    if part.tp is None:
+        return t
+    if t.shape[-1] != full:
+        t = comm.gather_from_model(t, -1, part.tp.group)
+    return comm.copy_to_model(t, part.tp.group)
+
+
+def _read(t: torch.Tensor, part: _Part, di: int) -> torch.Tensor:
+    """The channels of a whole x|B|C (last dim) that this rank's heads
+    read: their x channels and every B and C channel."""
+    if part.tp is None:
+        return t
+    return torch.cat([t[..., part.c0:part.c0 + part.nc], t[..., di:]], -1)
+
+
+def _heads(t: torch.Tensor, part: _Part) -> torch.Tensor:
+    """This rank's heads of a replicated per-head leaf."""
+    if part.tp is None:
+        return t
+    return _whole(t, t.shape[-1], part)[..., part.h0:part.h0 + part.nh]
+
+
+def _split_proj(params, u, cfg: ModelConfig, part: _Part):
+    """(this rank's z, the whole pre-conv x|B|C, this rank's dt)."""
     s = cfg.ssm
     di = _d_inner(cfg)
     G, N = s.n_groups, s.d_state
-    zxbcdt = u @ params["in_proj"]["w"]
-    z = zxbcdt[..., :di]
+    w = params["in_proj"]["w"]
+    n = 2 * di + 2 * G * N + _n_heads(cfg)
+    if part.tp is not None and w.shape[-1] != n:
+        # each rank's columns are a part of the work on the same u
+        u = comm.copy_to_model(u, part.tp.group)
+    zxbcdt = _whole(u @ w, n, part)
+    z = zxbcdt[..., part.c0:part.c0 + part.nc]
     xBC = zxbcdt[..., di:di + di + 2 * G * N]
-    dt_raw = zxbcdt[..., di + di + 2 * G * N:]
+    dt0 = di + di + 2 * G * N + part.h0
+    dt_raw = zxbcdt[..., dt0:dt0 + part.nh]
     return z, xBC, dt_raw
+
+
+def _conv_params(params, cfg: ModelConfig, part: _Part):
+    """The conv's weight and bias over the channels this rank reads."""
+    di = _d_inner(cfg)
+    C = di + 2 * cfg.ssm.n_groups * cfg.ssm.d_state
+    return tuple(_read(_whole(params["conv"][k], C, part), part, di)
+                 for k in ("w", "b"))
+
+
+def _gated_norm(params, y, z, cfg: ModelConfig):
+    """RMSNorm of ``y * silu(z)`` over the full ``d_inner``, of which a
+    tensor-parallel rank holds its heads' channels."""
+    return L.rmsnorm_split(params["norm"], y * L.silu(z), cfg.norm_eps)
+
+
+def _out_proj(params, y, part: _Part):
+    if part.tp is None:
+        return y @ params["out_proj"]["w"]
+    return L.row_parallel(y, params["out_proj"]["w"], part.tp)
 
 
 def mamba_block(params: dict, u: torch.Tensor,
@@ -166,20 +268,21 @@ def mamba_block(params: dict, u: torch.Tensor,
     """Full-sequence mamba2 mixing. u: (B, S, d_model)."""
     s = cfg.ssm
     di = _d_inner(cfg)
-    H, G, N, P = _n_heads(cfg), s.n_groups, s.d_state, s.head_dim
+    G, N, P = s.n_groups, s.d_state, s.head_dim
     Bsz, S, _ = u.shape
-    z, xBC, dt_raw = _split_proj(params, u, cfg)
-    xBC = _causal_conv(xBC, params["conv"]["w"], params["conv"]["b"])
-    x = xBC[..., :di].reshape(Bsz, S, H, P)
-    Bm = xBC[..., di:di + G * N].reshape(Bsz, S, G, N)
-    Cm = xBC[..., di + G * N:].reshape(Bsz, S, G, N)
-    dt = L.softplus(dt_raw.float() + params["dt_bias"])       # (B,S,H)
-    A = -torch.exp(params["A_log"])                           # (H,)
+    part = _part(params, cfg)
+    nh, nc = part.nh, part.nc
+    z, xBC, dt_raw = _split_proj(params, u, cfg, part)
+    xBC = _causal_conv(_read(xBC, part, di), *_conv_params(params, cfg, part))
+    x = xBC[..., :nc].reshape(Bsz, S, nh, P)
+    Bm = xBC[..., nc:nc + G * N].reshape(Bsz, S, G, N)
+    Cm = xBC[..., nc + G * N:].reshape(Bsz, S, G, N)
+    dt = L.softplus(dt_raw.float() + _heads(params["dt_bias"], part))
+    A = -torch.exp(_heads(params["A_log"], part))             # (nh,)
     y, _ = ssd_chunked(x.float() * dt[..., None], dt * A, Bm, Cm, s.chunk)
-    y = y + params["D"][None, None, :, None] * x.float()
-    y = y.reshape(Bsz, S, di).to(u.dtype)
-    y = L.rmsnorm(params["norm"], y * L.silu(z), cfg.norm_eps)
-    return y @ params["out_proj"]["w"]
+    y = y + _heads(params["D"], part)[None, None, :, None] * x.float()
+    y = y.reshape(Bsz, S, nc).to(u.dtype)
+    return _out_proj(params, _gated_norm(params, y, z, cfg), part)
 
 
 def mamba_decode(params: dict, u: torch.Tensor, cache: MambaCache,
@@ -188,30 +291,37 @@ def mamba_decode(params: dict, u: torch.Tensor, cache: MambaCache,
     cache); ``cache`` is not written."""
     s = cfg.ssm
     di = _d_inner(cfg)
-    H, G, N, P = _n_heads(cfg), s.n_groups, s.d_state, s.head_dim
+    G, N, P = s.n_groups, s.d_state, s.head_dim
+    C = di + 2 * G * N
     Bsz = u.shape[0]
-    z, xBC, dt_raw = _split_proj(params, u[:, 0], cfg)
-    # conv over (cached W-1 inputs ++ current), in float32
-    seq = torch.cat([cache.conv, xBC[:, None].to(cache.conv.dtype)],
-                    dim=1)                                    # (B,W,C)
-    conv_out = (seq.float() * params["conv"]["w"].float()).sum(dim=1)
-    xBC = L.silu(conv_out + params["conv"]["b"].float())
-    new_conv = seq[:, 1:]
-    x = xBC[..., :di].reshape(Bsz, H, P)
-    Bm = xBC[..., di:di + G * N].reshape(Bsz, G, N)
-    Cm = xBC[..., di + G * N:].reshape(Bsz, G, N)
-    dt = L.softplus(dt_raw.float() + params["dt_bias"])       # (B,H)
-    A = -torch.exp(params["A_log"])
-    dA = torch.exp(dt * A)                                    # (B,H)
-    R = H // G
+    part = _part(params, cfg)
+    nh, nc = part.nh, part.nc
+    z, xBC, dt_raw = _split_proj(params, u[:, 0], cfg, part)
+    # conv over (cached W-1 inputs ++ current), in float32; the cache holds
+    # this rank's block of channels where they are split
+    Cl = cache.conv.shape[-1]
+    seq = torch.cat([_whole(cache.conv, C, part),
+                     xBC[:, None].to(cache.conv.dtype)], dim=1)  # (B,W,C)
+    w, b = _conv_params(params, cfg, part)
+    conv_out = (_read(seq, part, di).float() * w.float()).sum(dim=1)
+    xBC = L.silu(conv_out + b.float())
+    lo = 0 if Cl == C else part.tp.rank * Cl
+    new_conv = seq[:, 1:, lo:lo + Cl]
+    x = xBC[..., :nc].reshape(Bsz, nh, P)
+    Bm = xBC[..., nc:nc + G * N].reshape(Bsz, G, N)
+    Cm = xBC[..., nc + G * N:].reshape(Bsz, G, N)
+    dt = L.softplus(dt_raw.float() + _heads(params["dt_bias"], part))
+    A = -torch.exp(_heads(params["A_log"], part))
+    dA = torch.exp(dt * A)                                    # (B,nh)
+    R = nh // G
     # B (x dt) as an outer product, C h as a matmul: the JAX einsums'
     # products without an einsum's reshapes (each one a host dispatch)
     Bx = Bm[:, :, None, None, :] * (x * dt[..., None]).view(
         Bsz, G, R, P, 1)                                      # (b,g,r,p,n)
-    h = dA[..., None, None] * cache.ssm + Bx.view(Bsz, H, P, N)
+    h = dA[..., None, None] * cache.ssm + Bx.view(Bsz, nh, P, N)
     y = torch.matmul(h.view(Bsz, G, R * P, N),
-                     Cm[..., None]).view(Bsz, H, P)
-    y = y + params["D"][None, :, None] * x
-    y = y.reshape(Bsz, 1, di).to(u.dtype)
-    y = L.rmsnorm(params["norm"], y * L.silu(z[:, None]), cfg.norm_eps)
-    return y @ params["out_proj"]["w"], MambaCache(h, new_conv)
+                     Cm[..., None]).view(Bsz, nh, P)
+    y = y + _heads(params["D"], part)[None, :, None] * x
+    y = y.reshape(Bsz, 1, nc).to(u.dtype)
+    y = _gated_norm(params, y, z[:, None], cfg)
+    return _out_proj(params, y, part), MambaCache(h, new_conv)

@@ -20,13 +20,13 @@ optimizer, the clip and the consensus act leaf by leaf on whole stacks.
 runs under ``torch.utils.checkpoint`` (a hybrid group, as in the JAX
 package, is one checkpointed unit).
 
-Under an active mesh with a "model" axis wider than 1 the dense (GQA or
-MLA), vision, MoE and audio families run tensor-parallel on each rank's
-local shards: the residual stream ("embed") replicated, attention (self
-and cross) and the MLP split over the axis, MoE's experts over "expert",
-the embedding and the head over "vocab" (``forward`` then returns this
-rank's columns of the logits); the patch scatter writes the replicated
-stream.  The SSM and hybrid families raise there.
+Under an active mesh with a "model" axis wider than 1 every family runs
+tensor-parallel on each rank's local shards: the residual stream
+("embed") replicated, attention (self and cross), the MLP, the mamba2
+mixer and the RG-LRU block split over the axis, MoE's experts over
+"expert", the embedding and the head over "vocab" (``forward`` then
+returns this rank's columns of the logits); the patch scatter writes the
+replicated stream.
 """
 from __future__ import annotations
 
@@ -134,19 +134,6 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, lead: tuple = (),
 
 # ---------------------------------------------------------------- forward
 
-def require_tp_support(cfg: ModelConfig) -> None:
-    """Raise when a model axis wider than 1 is active and ``cfg`` is of a
-    family that does not run tensor-parallel yet (SSM, hybrid)."""
-    if SH.model_axis() is None:
-        return
-    if cfg.family in ("ssm", "hybrid"):
-        raise NotImplementedError(
-            f"{cfg.arch_id}: tensor-parallel execution over the model axis "
-            f"covers the dense, vision, MoE and audio families; the "
-            f"{cfg.family} family waits for ROADMAP queue 1 item 5.1 (run "
-            f"it with a model axis of 1)")
-
-
 def _dense_block(bp, x, positions, cfg: ModelConfig, window: int,
                  causal: bool = True):
     h = L.rmsnorm(bp["ln1"], x, cfg.norm_eps)
@@ -176,7 +163,7 @@ def _hybrid_sub(sp, x, positions, cfg: ModelConfig, kind: str):
                              cfg.hybrid.local_window)
     x = x + h
     h = L.rmsnorm(sp["ln2"], x, cfg.norm_eps)
-    return x + L.mlp(sp["mlp"], h, cfg.activation)
+    return x + L.mlp(sp["mlp"], h, cfg.activation, cfg.d_ff)
 
 
 def _hybrid_group(bp, x, positions, cfg: ModelConfig):
@@ -237,7 +224,6 @@ def forward_features(params: Params, batch: Dict[str, torch.Tensor],
                      ) -> Tuple[torch.Tensor, Any]:
     """Backbone only: returns (normalized features (B,S,d), aux_loss) —
     the head is applied by ``forward`` or by the chunked-CE loss."""
-    require_tp_support(cfg)
     tokens = batch["tokens"]
     positions = torch.arange(tokens.shape[-1], device=tokens.device)
     window = cfg.window if window_override is None else window_override

@@ -373,16 +373,15 @@ def _tp_layout(cfg: ModelConfig, n_agents: int, group):
     tp = SH.model_axis()
     if tp is None:
         return None, group, None
-    T.require_tp_support(cfg)
     mesh, rules = SH.current_mesh(), SH.current_rules()
     sizes = SH.mesh_axis_sizes(mesh)
     for key in ("batch", "fsdp"):
         if any(sizes[a] > 1 for a in SH.axes_of(rules.get(key))):
             raise NotImplementedError(
                 f"{cfg.arch_id}: the {key!r} rule over {rules[key]} with a "
-                f"model axis: the fsdp rule waits for ROADMAP queue 1 item "
-                f"5.1; tensor-parallel training takes the agents over the "
-                f"data axes")
+                f"model axis: the batch and fsdp rules wait for ROADMAP "
+                f"queue 1 item 5.1.7; tensor-parallel training takes the "
+                f"agents over the data axes")
     if group is None and SH.axes_of(rules.get("agent")):
         group = SH.axes_group(mesh, SH.axes_of(rules["agent"]))
     return tp, group, model_counted(cfg, n_agents, rules, mesh, tp.rank)

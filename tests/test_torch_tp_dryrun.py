@@ -4,19 +4,21 @@ roofline's link term.
 * The counts the dry-run takes on ``meta`` tensors in a ``fake`` world
   equal ``comm.COUNTS`` of the same units run for real on two gloo ranks
   at (1, 2): h2o-danube-1.8b's smoke config, a train step, a prefill and a
-  decode step at small shapes; and one unit each of the vision, MLA, MoE
-  and audio families' smoke configs (``FAMILY_UNITS``).
+  decode step at small shapes; and one unit each of the vision, MLA, MoE,
+  audio, SSM and hybrid families' smoke configs (``FAMILY_UNITS``).
 * A production-mesh record of a dense (arch, shape) carries the JAX
   dry-run's keys (``collectives``: ``bytes_by_kind``, ``counts``,
   ``effective_bytes_per_device`` under its ring factors;
   ``extrapolated.collective_*``; ``analytic``), its depth extrapolation
   equals the full-depth count, and the roofline's link term is its
-  effective bytes over NVLink's rate; a record of another family holds
-  ``collectives: null`` with a reason and no link term.  One production
-  record of each of the four families (``FAMILY_RECORDS``) carries
-  collectives whose extrapolation from 2 and 3 layers equals the
+  effective bytes over NVLink's rate; a train record under the fsdp rule
+  (recurrentgemma-9b's ``train_4k``) holds ``collectives: null`` with a
+  reason naming ROADMAP 5.1.7 and no link term.  One production record of
+  each of the six families since the dense one (``FAMILY_RECORDS``)
+  carries collectives whose extrapolation from 2 and 3 layers equals the
   full-depth count (whisper's from 2 and 3 layers of each of its two
-  stacks), and a link term.
+  stacks, recurrentgemma's from 2 and 3 groups and its rec tail), and a
+  link term.
 """
 import ast
 import json
@@ -45,13 +47,21 @@ TC = dataclasses.replace(DR.TRAIN_CONFIG, use_kernel=False)
 
 #: one unit of each family that runs tensor-parallel since the dense one:
 #: arch -> the shape of SHAPES it runs at
-FAMILY_UNITS = {"phi-3-vision-4.2b": "tiny_prefill", "minicpm3-4b": "tiny_train",
-                "qwen3-moe-30b-a3b": "tiny_decode", "whisper-tiny": "tiny_train"}
+FAMILY_UNITS = {"phi-3-vision-4.2b": "tiny_prefill",
+                "minicpm3-4b": "tiny_train",
+                "qwen3-moe-30b-a3b": "tiny_decode",
+                "whisper-tiny": "tiny_train",
+                "mamba2-780m": "tiny_train",
+                "recurrentgemma-9b": "tiny_decode"}
 #: one production record of each, at a shape whose rules put no fsdp axis
 #: wider than 1 (whisper's prefill runs both of its stacks)
-FAMILY_RECORDS = {"phi-3-vision-4.2b": "train_4k", "minicpm3-4b": "decode_32k",
+FAMILY_RECORDS = {"phi-3-vision-4.2b": "train_4k",
+                  "minicpm3-4b": "decode_32k",
                   "qwen3-moe-30b-a3b": "prefill_32k",
-                  "whisper-tiny": "prefill_32k"}
+                  "whisper-tiny": "prefill_32k", "mamba2-780m": "train_4k",
+                  "recurrentgemma-9b": "decode_32k"}
+#: a record that keeps ``collectives: null``: training under the fsdp rule
+NULL_RECORD = ("recurrentgemma-9b", "train_4k")
 
 
 def smoke(arch="h2o-danube-1.8b"):
@@ -121,7 +131,9 @@ def test_family_meta_counts_equal_a_real_gloo_run(gloo_run, family_meta,
         real = json.load(f)[arch]
     assert family_meta[arch] == real
     assert real["counts"]["all-reduce"] > 0
-    if arch == "minicpm3-4b":       # the latent and the output gathered
+    if arch in ("minicpm3-4b", "mamba2-780m", "recurrentgemma-9b"):
+        # MLA's latent and output, mamba2's projection and conv weight,
+        # the RG-LRU gates' input: gathered
         assert real["counts"]["all-gather"] > 0
 
 
@@ -139,17 +151,16 @@ def jax_coll_factor():
 @pytest.fixture(scope="module")
 def records(tmp_path_factory):
     out = str(tmp_path_factory.mktemp("tp_records"))
-    recs = DR.run_mesh(["h2o-danube-1.8b", "mamba2-780m"], ["decode_32k"],
-                       False, out)
-    recs += [r for arch, shape in FAMILY_RECORDS.items()
+    recs = DR.run_mesh(["h2o-danube-1.8b"], ["decode_32k"], False, out)
+    recs += [r for arch, shape in (NULL_RECORD, *FAMILY_RECORDS.items())
              for r in DR.run_mesh([arch], [shape], False, out)]
-    return {r["arch"]: r for r in recs}, out
+    return {(r["arch"], r["shape"]): r for r in recs}, out
 
 
 def test_records_carry_the_jax_keys_and_the_link_term(records):
     recs, out = records
     assert DR.COLL_FACTOR == jax_coll_factor()
-    r = recs["h2o-danube-1.8b"]
+    r = recs[("h2o-danube-1.8b", "decode_32k")]
     coll = r["collectives"]
     assert set(coll) == {"bytes_by_kind", "counts",
                          "effective_bytes_per_device"}
@@ -168,15 +179,15 @@ def test_records_carry_the_jax_keys_and_the_link_term(records):
     assert t["t_link_s"] == ext["collective_effective_bytes_per_device"] \
         / 450e9 > 0
     assert RF.CHIPS["16x16"] == 256 and RF.CHIPS["2x16x16"] == 512
-    m = recs["mamba2-780m"]
-    assert m["collectives"] is None and "5.1" in m["collectives_reason"]
+    m = recs[NULL_RECORD]
+    assert m["collectives"] is None and "5.1.7" in m["collectives_reason"]
     tm = RF.roofline_terms(m)
     assert tm["t_link_s"] is None and tm["dominant"] != "link"
     text = RF.report(RF.load_records(out))
     assert text.startswith("Card: NVIDIA H100 80GB HBM3, 700.00 W")
     assert "NVLink" in text
     row = [l for l in text.splitlines()
-           if l.startswith("| mamba2-780m | decode_32k | 16x16")]
+           if l.startswith("| %s | %s | 16x16" % NULL_RECORD)]
     assert len(row) == 1 and "| n/a |" in row[0]
     assert np.isfinite(t["step_time_bound_s"])
 
@@ -184,8 +195,8 @@ def test_records_carry_the_jax_keys_and_the_link_term(records):
 @pytest.mark.parametrize("arch", FAMILY_RECORDS)
 def test_family_records_carry_collectives_and_extrapolate(records, arch):
     recs, _ = records
-    r = recs[arch]
-    assert r["status"] == "ok" and r["shape"] == FAMILY_RECORDS[arch]
+    r = recs[(arch, FAMILY_RECORDS[arch])]
+    assert r["status"] == "ok"
     coll, ext = r["collectives"], r["extrapolated"]
     assert coll["counts"]["all-reduce"] > 0
     # per-layer collectives affine in depth, whisper's two stacks included

@@ -1,30 +1,39 @@
-"""Tensor-parallel execution of the vision, MLA, MoE and audio families
-over the "model" axis, against the JAX package's units jitted with the same
-specs' shardings on forced host devices.
+"""Tensor-parallel execution of the vision, MLA, MoE, audio, SSM and
+hybrid families over the "model" axis, against the JAX package's units
+jitted with the same specs' shardings on forced host devices.
 
 Each family's smoke config in f32 (phi-3-vision-4.2b, minicpm3-4b,
-qwen3-moe-30b-a3b, whisper-tiny), the same numpy parameters and batches
-(2 sequences of 24 tokens, with patch embeddings at 16 positions for
-vision and 64 frames for audio), carried across by ``convert``:
+qwen3-moe-30b-a3b, whisper-tiny, mamba2-780m, recurrentgemma-9b), the
+same numpy parameters and batches (2 sequences of 24 tokens, with patch
+embeddings at 16 positions for vision and 64 frames for audio), carried
+across by ``convert``:
 
 * Train: 3 steps of ``make_train_step`` (exp-sum K = 4, in-step metrics, a
   gradient clip of 0.05 that binds at every step), each rank on its shards
-  under ``train_state_specs``: on (1, 2) for the four families; on (1, 4)
+  under ``train_state_specs``: on (1, 2) for the six families; on (1, 4)
   for minicpm3 with exact memory at T = 4 (rank 3's ``kv_down`` columns
-  hold the end of the latent and all of the rope part), for qwen3-moe
-  (one expert a rank) and for whisper with 2 heads (the axis does not
-  divide them: attention runs replicated, the MLP and the vocab split).
-  Losses, metrics and the gathered parameters agree to rtol 1e-5 / atol
-  1e-6; replicated leaves are bit-equal across model ranks.
+  hold the end of the latent and all of the rope part), for mamba2 with
+  exact memory at T = 4 (``in_proj``'s 560 columns, 140 a rank, the
+  conv's 288 channels, 72 a rank, and the 16 heads, 4 a rank, all
+  straddle one another), for qwen3-moe (one expert a rank) and for
+  whisper with 2 heads (the axis does not divide them: attention runs
+  replicated, the MLP and the vocab split).  Losses, metrics and the
+  gathered parameters agree to rtol 1e-5 / atol 1e-6; replicated leaves
+  are bit-equal across model ranks.
 * Serve: ``make_prefill``'s last logits (with the patch embeddings or the
   frames), then 4 greedy steps of ``make_serve_step`` beside
   ``decode_step``'s logits from an empty cache (whisper's cross K/V
   written by ``encode_for_decode``) under ``serve_rules``, on (1, 2) for
-  the four families and on (1, 4) for the 2-head whisper: logits rtol
+  the six families and on (1, 4) for the 2-head whisper: logits rtol
   1e-4 / atol 1e-5, tokens equal.
 * Planted faults that must miss: the MoE router under ``copy_to_model``
   (its gradient summed over the ranks), the audio cross-attention without
-  its reduce, and MLA reading ``k_rope`` from rank 0's column range.
+  its reduce, MLA reading ``k_rope`` from rank 0's column range, mamba2's
+  gated norm over the local width alone, and the hybrid MLP called
+  without ``d_ff`` (its partial sums never reduced).
+* recurrentgemma-9b (fsdp=True) still refuses to train on a (2, 2) mesh:
+  its batch and fsdp rules span the data axis (ROADMAP queue 1 item
+  5.1.7).
 
 One spawn of four gloo ranks runs every case: two pairs of ranks (two
 2-rank worlds in turn) take the (1, 2) cases side by side, then the four
@@ -59,23 +68,31 @@ FAMILIES = {"vlm": ("phi-3-vision-4.2b", {}),
             "mla": ("minicpm3-4b", {}),
             "moe": ("qwen3-moe-30b-a3b", {}),
             "audio": ("whisper-tiny", {}),
-            "audio_h2": ("whisper-tiny", {"n_heads": 2, "n_kv_heads": 2})}
+            "audio_h2": ("whisper-tiny", {"n_heads": 2, "n_kv_heads": 2}),
+            "ssm": ("mamba2-780m", {}),
+            "hybrid": ("recurrentgemma-9b", {})}
 EXPSUM = {"memory_mode": "expsum", "K": 4}
 #: train case: (family, model axis, TrainConfig keywords)
+EXACT = {"memory_mode": "exact", "T": 4}
 TRAIN = {"vlm_m2": ("vlm", 2, EXPSUM), "mla_m2": ("mla", 2, EXPSUM),
          "moe_m2": ("moe", 2, EXPSUM), "audio_m2": ("audio", 2, EXPSUM),
-         "mla_m4_exact": ("mla", 4, {"memory_mode": "exact", "T": 4}),
+         "ssm_m2": ("ssm", 2, EXPSUM), "hybrid_m2": ("hybrid", 2, EXPSUM),
+         "mla_m4_exact": ("mla", 4, EXACT),
+         "ssm_m4_exact": ("ssm", 4, EXACT),
          "moe_m4": ("moe", 4, EXPSUM),
          "audio_h2_m4": ("audio_h2", 4, EXPSUM)}
 #: serve case: (family, model axis)
 SERVE = {"vlm_m2": ("vlm", 2), "mla_m2": ("mla", 2), "moe_m2": ("moe", 2),
-         "audio_m2": ("audio", 2), "audio_h2_m4": ("audio_h2", 4)}
+         "audio_m2": ("audio", 2), "ssm_m2": ("ssm", 2),
+         "hybrid_m2": ("hybrid", 2), "audio_h2_m4": ("audio_h2", 4)}
 #: the (1, 2) cases of each pair of ranks, then the (1, 4) cases
-PAIRS = (("vlm", "mla"), ("moe", "audio"))
+PAIRS = (("vlm", "mla", "hybrid"), ("moe", "audio", "ssm"))
 #: planted fault: (the case it plants into, train or serve)
 PLANTED = {"router_under_copy_to_model": ("moe_m2", "train"),
            "cross_attention_without_reduce": ("audio_m2", "serve"),
-           "k_rope_from_rank0_columns": ("mla_m2", "serve")}
+           "k_rope_from_rank0_columns": ("mla_m2", "serve"),
+           "gated_norm_over_local_width": ("ssm_m2", "serve"),
+           "hybrid_mlp_without_d_ff": ("hybrid_m2", "serve")}
 
 
 def config(family):
@@ -227,9 +244,9 @@ JAX_SCRIPT = textwrap.dedent("""
 """)
 #: the JAX units in processes of their own, run side by side (the train
 #: cases compile one step each, the serve cases two or three units)
-JAX_PARTS = ((("vlm_m2", "mla_m2", "moe_m2"), ()),
+JAX_PARTS = ((("vlm_m2", "mla_m2", "moe_m2", "ssm_m2"), ()),
              (("audio_m2", "mla_m4_exact", "moe_m4", "audio_h2_m4"), ()),
-             ((), tuple(SERVE)))
+             (("hybrid_m2", "ssm_m4_exact"), tuple(SERVE)))
 
 
 # ------------------------------------------------------------ planted
@@ -266,15 +283,38 @@ def _k_rope_from_rank0(ckv, tp, r):
     return full[..., :r], full[..., w - rope:w]
 
 
+def _local_width_norm(params, x, eps=1e-6):
+    """The fault: an RMS norm over this rank's part of the width alone
+    (with its slice of the scale)."""
+    from repro_torch.models import layers as L
+
+    tp, n = SH.model_axis(), x.shape[-1]
+    scale = params["scale"][tp.rank * n:(tp.rank + 1) * n]
+    return L.rmsnorm({"scale": scale}, x, eps)
+
+
+def _without_d_ff(real):
+    """The fault: the MLP called without its full hidden width, so a
+    split hidden layer's partial sums are never reduced."""
+    def mlp(params, x, act_name, d_ff=None):
+        return real(params, x, act_name)
+    return mlp
+
+
 def planted(name):
     """(module, attribute, faulty replacement) of a planted fault."""
     from repro_torch.models import attention as A
+    from repro_torch.models import layers as L
     from repro_torch.models import moe as MOE
 
     if name == "router_under_copy_to_model":
         return MOE, "route", _router_under_copy(MOE.route)
     if name == "cross_attention_without_reduce":
         return T, "cross_attend", _without_reduce(T.cross_attend)
+    if name == "gated_norm_over_local_width":
+        return L, "rmsnorm_split", _local_width_norm
+    if name == "hybrid_mlp_without_d_ff":
+        return L, "mlp", _without_d_ff(L.mlp)
     return A, "_kv_latent", _k_rope_from_rank0
 
 
@@ -406,6 +446,25 @@ def _rank_families(rank, world, d):
     _regroup(os.path.join(d, "four"), rank, 4)
     mesh = ML.make_host_mesh(4)
     _save(d, rank, {c: _run(*c, d, mesh) for c in _cases(FAMILIES, 4)})
+    raised = fsdp_raise(ML.make_host_mesh(2))          # (data 2, model 2)
+    if rank == 0:
+        with open(os.path.join(d, "fsdp_raised.json"), "w") as f:
+            json.dump(raised, f)
+
+
+def fsdp_raise(mesh):
+    """What ``make_train_step`` of recurrentgemma-9b (fsdp=True) raises on
+    a mesh whose data axis is 2 (``""`` if nothing)."""
+    from repro_torch.training import train_step as TS
+
+    cfg = config("hybrid")
+    with SH.use_rules(TS.build_rules(cfg, False), mesh):
+        try:
+            TS.make_train_step(cfg, TS.TrainConfig(),
+                               TS.n_agents_for(cfg, mesh, False))
+        except NotImplementedError as e:
+            return str(e)
+    return ""
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -493,3 +552,10 @@ def test_planted_faults_miss(runs, fault):
         bad, ref = load(d, fault, "serve", "port"), load(d, case, "serve",
                                                           "jax")
         assert not np.allclose(bad["prefill"], ref["prefill"], **SERVE_TOL)
+
+
+def test_hybrid_training_still_refuses_a_data_axis_under_tp(runs):
+    d, _ = runs
+    with open(os.path.join(d, "fsdp_raised.json")) as f:
+        raised = json.load(f)
+    assert "recurrentgemma-9b" in raised and "5.1.7" in raised

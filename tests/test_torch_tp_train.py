@@ -19,7 +19,8 @@ counts replicated leaves on every model rank (the planted fault) misses.
 On a (4, 1) mesh (model axis 1) the step is bit-equal to the agent-sharded
 step without rules.  A backward run in another thread than the forward
 (as autograd runs it on a CUDA device) recomputes the remat layers under
-the forward's rules.  A non-dense family raises under a model axis > 1.
+the forward's rules.  recurrentgemma-9b (fsdp=True) raises on the (2, 2)
+mesh: its batch and fsdp rules span the data axis (ROADMAP 5.1.7).
 The JAX subprocess and the ranks run at the same time.
 """
 import json
@@ -268,10 +269,11 @@ def _rank_train(rank, world, d):
     bit_equal = run_model_axis_one(d)
     threaded = backward_in_another_thread(d, meshes[2])
     raised = ""
-    with SH.use_rules(TS.build_rules(config("float32"), False), meshes[2]):
+    hybrid = REG.get_smoke_config("recurrentgemma-9b")
+    with SH.use_rules(TS.build_rules(hybrid, False), meshes[2]):
         try:
-            TS.make_train_step(REG.get_smoke_config("mamba2-780m"),
-                               TS.TrainConfig(), 2)
+            TS.make_train_step(hybrid, TS.TrainConfig(),
+                               TS.n_agents_for(hybrid, meshes[2], False))
         except NotImplementedError as e:
             raised = str(e)
     if rank == 0:
@@ -365,4 +367,5 @@ def test_model_axis_one_is_bit_equal_and_other_families_raise(runs):
     _, _, port = runs
     assert port["bit_equal"]
     assert port["threaded"], "a backward in autograd's own thread differs"
-    assert "mamba2-780m" in port["raised"] and "5.1" in port["raised"]
+    # the rule that still waits: fsdp (and batch) over a data axis of 2
+    assert "recurrentgemma-9b" in port["raised"] and "5.1.7" in port["raised"]

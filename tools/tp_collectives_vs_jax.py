@@ -24,13 +24,15 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(REPO, "src"))
 
 ARCHS = ("h2o-danube-1.8b", "phi-3-vision-4.2b", "minicpm3-4b",
-         "qwen3-moe-30b-a3b", "whisper-tiny")
+         "qwen3-moe-30b-a3b", "whisper-tiny", "mamba2-780m",
+         "recurrentgemma-9b")
 #: (name, seq, global batch, kind) of the smoke-size units
 UNITS = (("smoke_train", 32, 2, "train"), ("smoke_decode", 64, 2, "decode"))
 #: one production record of each family (16x16), as the dry-run makes it
 RECORDS = {"h2o-danube-1.8b": "train_4k", "phi-3-vision-4.2b": "train_4k",
            "minicpm3-4b": "train_4k", "qwen3-moe-30b-a3b": "prefill_32k",
-           "whisper-tiny": "train_4k"}
+           "whisper-tiny": "train_4k", "mamba2-780m": "train_4k",
+           "recurrentgemma-9b": "prefill_32k"}
 
 JAX_SCRIPT = textwrap.dedent("""
     import json, os, sys
