@@ -39,8 +39,8 @@ Phases, each printing one JSON line:
 9. llm_train: the LLM trainer (``repro_torch.launch.train.run_training``)
    on h2o-danube-1.8b at full width, depth cut to 8 layers, seq 4096, 2
    agents x 2 sequences, FrODO exp-sum memory (K = 8, f32 accumulators)
-   through the exp-sum kernel on bf16 leaves: 20 steps, a falling loss,
-   240 launches, ms/step, tokens/s, peak memory, the step's model and
+   through the exp-sum kernel on bf16 leaves: 12 steps, a falling loss,
+   144 launches, ms/step, tokens/s, peak memory, the step's model and
    executed FLOPs (``utils.flops.train_flops``) and ``mfu`` (model FLOPs
    over the step time and 989.4 TFLOP/s, on every llm_train line), and a
    3-step
@@ -94,9 +94,9 @@ Phases, each printing one JSON line:
     packed run; tokens/s, TTFT, ms per step by phase and per prefill token, the
     busy share, peak memory, and one decode step over the full arena
     beside its weight-read bound.  The models run in the groups of
-    SERVE_GROUPS: qwen3-moe-30b-a3b alone, then h2o-danube-1.8b,
-    mamba2-780m and whisper-tiny in a process of their own beside the
-    other three in this one;
+    SERVE_GROUPS: qwen3-moe-30b-a3b alone, then h2o-danube-1.8b and
+    mamba2-780m in a process of their own beside the other four in this
+    one;
 11. dryrun: ``repro_torch.launch.dryrun --all`` over the ten architectures
     x four shapes on the meta path (each record ``ok`` or skipped with
     ``registry.shape_supported``'s reason), then ``--probe`` on
@@ -156,6 +156,26 @@ Phases, each printing one JSON line:
     steps at T = 8), an f32 prefill and 16 decode steps, each against the
     one-process units this process runs meanwhile (the same limits), with
     a planted fault per family but phi-3-vision that must fail;
+16c. fsdp: the fsdp and batch rules over "data" beside the "model" axis:
+    four gloo ranks sharing the card at (data 2, model 2) under
+    ``build_rules`` of the fsdp configs (one agent, its rows one a data
+    rank, each layer's fsdp leaves split over "data" and gathered at use):
+    qwen3-32b at full width (2 of 64 layers, bf16, exp-sum K = 4 with bf16
+    accumulators, seq 2048, a clip that binds, 2 steps), qwen3-moe-30b-a3b
+    (1 of 48 layers: 2 exp-sum steps, then 2 exact steps at T = 8) and
+    its layer 0's MoE forward (the aux loss over every rank's rows), then
+    qwen3-32b's f32 prefill (2 x 256) and 2 greedy decode steps under
+    ``serve_rules(..., weights_fsdp=True)``; each against the one-process
+    run of the same batch, made before the ranks start (losses rtol 1e-4,
+    the clip norm against the spec tree's, every shard within 2 bf16 ulps
+    of the same slice (or twice the one-process spread through cuBLASLt),
+    replicas bit-equal, f32 logits rtol 1e-4 with equal tokens, each
+    rank's state at most 0.45 of the agent's, the ranks' peaks summed
+    under 72 GB, the kernels' launches a rank); collectives a step by
+    group ("data", "model"); replicated leaves counted on both data ranks
+    in the clip (the norm those flags give over qwen3-32b's first
+    gradient), the batch sum skipped (one qwen3-moe step) and MoE's load
+    balance over each rank's own means must fail;
 17. timing: CUDA-event medians of each kernel, its plain version and (exact)
    one library call, beside the memory bound; the Exp 2 ms/step;
 18. profile: torch.profiler device time per launch of each kernel at each
@@ -174,8 +194,9 @@ llm_train_recurrentgemma, serve_<arch> for the seven served models
 distributed_stacked, distributed_world1, distributed_2ranks,
 tensor_parallel_4ranks, tensor_parallel_stacked_exact,
 tensor_parallel_exact_4ranks, tensor_parallel_families_2ranks (the ranks'
-sums) and tensor_parallel_families_one_process, each counted from 0 just
-before the path runs), the
+sums), tensor_parallel_families_one_process, and fsdp_{dense,moe,
+moe_exact}_{4ranks,one_process}, each counted from 0 just before the path
+runs), the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Any failed
 check raises, so the script exits non-zero and prints no result.
 """
@@ -673,9 +694,10 @@ def slice_profile(dev) -> dict:
 #: the llm_train phase: h2o-danube-1.8b at full width through the port's
 #: launcher (repro_torch.launch.train.run_training)
 LLM_ARCH = "h2o-danube-1.8b"
-#: ms/step is the median of steps 6-19: the window's steps run under the
+#: ms/step is the median of steps 6-11: the window's steps run under the
 #: profiler, and step 5, the one after it, also times the trace's export.
-LLM = dict(n_layers=8, seq=4096, batch_per_agent=2, agents=2, steps=20,
+#: 12 steps (20 until the fsdp phase took the 8 steps' ~16 s)
+LLM = dict(n_layers=8, seq=4096, batch_per_agent=2, agents=2, steps=12,
            T=90, profile=(2, 4), timed_from=6)
 LLM_REDUCED = {
     "n_layers": "24 -> 8: two agents' exp-sum state (K = 8 f32 "
@@ -838,7 +860,7 @@ def llm_vs_loss(dev, mode, T_, seq=LLM_VS_PLAIN["seq"],
 def llm_train_phase(dev) -> dict:
     """The LLM trainer on the card: h2o-danube-1.8b at full width with cut
     depth, FrODO exp-sum memory through the exp-sum kernel on bf16 leaves
-    (20 steps, profiled); the exact-memory sub-run through the exact
+    (12 steps, profiled); the exact-memory sub-run through the exact
     kernel; kernel vs plain path in both modes; card vs the card machine's
     CPU at the f32 smoke config; exp-sum with bf16 accumulators; and both
     kernels against their plain versions at the largest leaves.  Returns
@@ -1660,6 +1682,9 @@ SERVE_TRAFFIC = {"h2o-danube-1.8b": (SERVE_FULL, 4),
 #: 955.3 s on a host at 217.4 s, ~984 s at that pace, ~100 s more than
 #: the 5 s needed.  That last halving is undone (it saved ~15-20 s), and
 #: the tensor_parallel phase's exact-memory steps take ~10 s of the room.
+#: The fsdp phase (132-164 s) took the script to 911-946 s: mamba2's
+#: traffic is halved again, and whisper-tiny moves to the third group
+#: (the second, h2o-danube, mamba2 and whisper, ended 74 s after it).
 SERVE_TRAFFIC_CUT = ("traffic only, decode vs forward at full depth: "
                      "the script's 1,200 s limit")
 SERVE_TRAFFIC_LAYERS = {
@@ -1667,8 +1692,8 @@ SERVE_TRAFFIC_LAYERS = {
                              "phase), " + SERVE_TRAFFIC_CUT),
     "minicpm3-4b": (8, "62 -> 8 (16 until the tensor_parallel phase), "
                        + SERVE_TRAFFIC_CUT),
-    "mamba2-780m": (8, "48 -> 8 (16 until the tensor_parallel phase), "
-                       + SERVE_TRAFFIC_CUT),
+    "mamba2-780m": (4, "48 -> 4 (8 until the fsdp phase, 16 until the "
+                       "tensor_parallel phase), " + SERVE_TRAFFIC_CUT),
     "h2o-danube-1.8b": (4, "24 -> 4 (8 until the tensor_parallel "
                            "phase), " + SERVE_TRAFFIC_CUT),
     "recurrentgemma-9b": (6, "38 -> 6 (two rec, rec, local-attention "
@@ -2035,8 +2060,9 @@ def first_layers(cfg, params, n: int) -> tuple:
 #: layers hold 61 GB), then the second group in a process of its own
 #: beside the third in this one (their peaks add to ~35 GB)
 SERVE_GROUPS = (("qwen3-moe-30b-a3b",),
-                ("h2o-danube-1.8b", "mamba2-780m", "whisper-tiny"),
-                ("minicpm3-4b", "phi-3-vision-4.2b", "recurrentgemma-9b"))
+                ("h2o-danube-1.8b", "mamba2-780m"),
+                ("minicpm3-4b", "phi-3-vision-4.2b", "recurrentgemma-9b",
+                 "whisper-tiny"))
 
 
 def serve_phase(dev) -> dict:
@@ -4225,6 +4251,687 @@ def tensor_parallel_phase(dev, ref_dir: str) -> dict:
                                for r in ranks]}
 
 
+
+# ------------------------------------------------------------------ fsdp
+#: the fsdp and batch rules over "data" beside the "model" axis: four gloo
+#: ranks share the card at (data 2, model 2) under ``build_rules`` of an
+#: fsdp config on one pod (one agent, no agent axis): the agent's two
+#: rows one a data rank, each layer's fsdp leaves split over "data" and
+#: gathered at use (their gradients reduce-scattered back), the leaves
+#: the data axis replicates summed over it.  Every check is against the
+#: one-process step of the same batch, which this process runs before the
+#: ranks start (never beside them: memory).
+FSDP_ARCH = "qwen3-32b"
+FSDP = dict(mesh=(2, 2), n_layers=2, seq=2048, batch=2, K=4,
+            acc_dtype="bfloat16", steps=2, planted_steps=1)
+#: qwen3-moe-30b-a3b at 1 layer: 2 exp-sum steps, then 2 exact steps; the
+#: batch sum skipped is planted in one step of it; the replicated leaves
+#: counted on both data ranks are read from qwen3-32b's first step (the
+#: clip norm those flags give over its gradient)
+FSDP_MOE = dict(n_layers=1, steps=2, exact_steps=2, exact_T=8)
+#: the train runs: (arch, depth, exact memory, steps)
+#: the train runs, in order (the smaller model first: a fresh rank's first
+#: step also pays the card's and gloo's first-use costs): (arch, depth,
+#: exact memory, steps)
+FSDP_RUNS = {"moe": (MOE_ARCH, FSDP_MOE["n_layers"], False,
+                     FSDP_MOE["steps"]),
+             "moe_exact": (MOE_ARCH, FSDP_MOE["n_layers"], True,
+                           FSDP_MOE["exact_steps"]),
+             "dense": (FSDP_ARCH, FSDP["n_layers"], False, FSDP["steps"])}
+#: serving under ``serve_rules(..., weights_fsdp=True)`` in f32: a prefill
+#: of 2 x 256 tokens (one row a data rank), then greedy decode steps
+#: (``decode_step``'s logits, the tokens their ``vocab_argmax``, as
+#: ``make_serve_step`` takes them) from an empty cache of 256 slots (128 a
+#: model rank)
+FSDP_SERVE = dict(n_layers=2, prefill=(2, 256), decode_steps=2,
+                  max_len=256)
+FSDP_REDUCED = {
+    "n_layers": "qwen3-32b 64 -> 2 (train and serving), qwen3-moe-30b-a3b "
+                "48 -> 1 (its llm_train cell)",
+    "K": "8 -> 4 with bf16 accumulators",
+    "seq": "train_4k's 4096 -> 2048",
+    "global_batch": "256 -> 2 (one agent: one row a data rank)",
+    "steps": "qwen3-32b 3 -> 2, serving's decode 16 -> 2 (the script's "
+             "time: a qwen3-32b step moves ~6.5 GB a rank through gloo, "
+             "10.6-18.5 s, and an f32 decode step gathers 975 MB, "
+             "3.3-4.8 s)",
+    "mesh": "(data 2, model 2): four ranks share one H100 over gloo; the "
+            "production mesh is 16 x 16"}
+#: each rank's state (its parameter and memory shards) against the agent's
+#: whole state: the layers' leaves 1/4, the vocab-split embedding and head
+#: 1/2, the norms whole
+FSDP_STATE_SHARE = 0.45
+#: the four ranks' peaks, summed
+FSDP_PEAK_SUM = 72e9
+#: the MoE aux loss of layer 0's forward on the ranks' rows against the
+#: one-process forward's: f32 sums in another order.  The load balance is
+#: a product of two means over the agent's rows; each rank's own means
+#: (the planted fault) move it by far more
+FSDP_AUX_TOL = dict(rtol=1e-5, atol=0.0)
+FSDP_PLANTED = ("replicated_counted_on_every_data_rank",
+                "batch_sum_skipped", "load_balance_over_local_means")
+
+
+def _fsdp_cfg(arch, n_layers, dtype=None):
+    from repro_torch.configs import registry as REG
+
+    cfg = REG.get_config(arch).replace(n_layers=n_layers)
+    return cfg if dtype is None else cfg.replace(param_dtype=dtype,
+                                                 compute_dtype=dtype)
+
+
+def _fsdp_tc(exact=False):
+    from repro_torch.training import train_step as TS
+
+    if exact:
+        return TS.TrainConfig(memory_mode="exact", T=FSDP_MOE["exact_T"],
+                              use_kernel=True, grad_clip=DIST["grad_clip"])
+    return TS.TrainConfig(memory_mode="expsum", K=FSDP["K"],
+                          acc_dtype=FSDP["acc_dtype"], use_kernel=True,
+                          grad_clip=DIST["grad_clip"])
+
+
+def _fsdp_counted(specs, mesh) -> list:
+    """The spy's flags, from the spec tree alone: a leaf counts on the
+    ranks whose coordinate is 0 on every axis that does not split it."""
+    from repro_torch import tree as TR
+    from repro_torch.distributed import sharding as SH
+
+    coords = SH.mesh_coords(mesh)
+    return [all(c == 0 for a, c in coords.items()
+                if a not in {x for p in spec for x in SH.axes_of(p)})
+            for spec in TR.leaves(specs)]
+
+
+def _checksums(leaves) -> "torch.Tensor":
+    """Per leaf, a position-weighted sum of its bits (int64, in chunks)."""
+    import torch
+
+    out = []
+    for t in leaves:
+        bits = t.detach().contiguous().view(
+            {2: torch.int16, 4: torch.int32}[t.element_size()]).reshape(-1)
+        s = torch.zeros((), dtype=torch.int64, device=t.device)
+        for i in range(0, bits.numel(), 1 << 24):
+            c = bits[i:i + (1 << 24)].to(torch.int64)
+            w = torch.arange(i, i + c.numel(), device=t.device) % 8191 + 1
+            s = s + (c * w).sum()
+        out.append(s)
+    return torch.stack(out)
+
+
+def _replicas_equal(leaves, specs, mesh) -> bool:
+    """Every leaf bit-equal (by checksum) on the ranks whose coordinates
+    agree on the axes that split it."""
+    import torch
+    from repro_torch.distributed import comm
+    from repro_torch.distributed import sharding as SH
+
+    sums = comm.all_gather(_checksums(leaves), None).cpu()   # (world, n)
+    ranks = mesh.mesh
+    coords = [dict(zip(mesh.mesh_dim_names,
+                       (ranks == r).nonzero()[0].tolist()))
+              for r in range(sums.shape[0])]
+    for j, spec in enumerate(specs):
+        used = {a for p in spec for a in SH.axes_of(p)}
+        for r, c in enumerate(coords):
+            twin = [q for q, e in enumerate(coords)
+                    if all(e[a] == c[a] for a in used)][0]
+            if not torch.equal(sums[r, j], sums[twin, j]):
+                return False
+    return True
+
+
+def _drawn_and_cut(draw, specs, mesh, dev):
+    """This rank's shards of ``draw()``'s whole tree, the whole tree freed
+    and the allocator's cache released before the next allocation (four
+    ranks' whole draws and states share the card)."""
+    import torch
+    from repro_torch import convert as CV
+
+    local = CV.shard_tree(draw(), specs, mesh, dev)
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    return local
+
+
+def fsdp_train(dev, arch, n_layers, tc, steps, mesh=None,
+               timed=False, bad_counted=None) -> dict:
+    """``steps`` train steps of ``arch`` at ``n_layers`` from the seed-0
+    draw, one agent of FSDP["batch"] rows: in one process (``mesh`` None)
+    or on this rank's shards and rows under ``build_rules``.  Losses, the
+    clip norm the step used beside the spec tree's norm of its gradient,
+    ms per step, launches, the collectives by group, peak memory, the
+    state's bytes and its parameters (whole in one process, this rank's
+    shards on a mesh, with whether every replica is bit-equal).  With
+    ``bad_counted`` (a ``model_counted`` in place), the clip norm the
+    first step would take with those flags, beside the spec tree's."""
+    import torch
+    from repro_torch import convert as CV
+    from repro_torch import tree as TR
+    from repro_torch.data.synthetic import TokenPipeline
+    from repro_torch.distributed import comm
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.kernels import frodo_update as KU
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as TM
+    from repro_torch.training import train_step as TS
+
+    cfg = _fsdp_cfg(arch, n_layers)
+    data = iter(TokenPipeline(vocab=cfg.vocab, seq_len=FSDP["seq"],
+                              batch_per_agent=FSDP["batch"], n_agents=1,
+                              seed=0))
+    batches = [next(data) for _ in range(steps)]
+    rules = specs = None
+    on_card = dev.type == "cuda"
+
+    def draw():
+        return TM.init_params(torch.Generator(device=dev).manual_seed(0),
+                              cfg, (1,), dev)
+
+    if mesh is not None:
+        rules = TS.build_rules(cfg, False)
+        specs = TS.param_specs(TM.init_params(
+            torch.Generator(), cfg, (1,), "meta"), rules, mesh)
+        state = TS.train_state_from_params(
+            _drawn_and_cut(draw, specs, mesh, dev), tc)
+        if on_card:
+            torch.cuda.empty_cache()     # the accumulators' f32 zeros
+        bspecs = TS.batch_specs(batches[0], rules, mesh)
+        batches = [CV.shard_tree(b, bspecs, mesh, dev) for b in batches]
+        counted = _fsdp_counted(specs, mesh)
+    else:
+        state = TS.train_state_from_params(draw(), tc)
+    clips = []
+    real_clip = TS.clip_by_global_norm
+
+    bad = []
+
+    def spy(tree, max_norm, norm=None):
+        sq = sum(torch.sum(torch.square(g.float()))
+                 for g, c in zip(TR.leaves(tree), counted) if c)
+        torch.distributed.all_reduce(sq)         # not the step's: uncounted
+        clips.append((float(norm), float(torch.sqrt(sq))))
+        if bad_counted is not None and not bad:
+            wrong = sum(torch.sum(torch.square(g.float())) for g, c in zip(
+                TR.leaves(tree), bad_counted(cfg, 1, rules, mesh)) if c)
+            torch.distributed.all_reduce(wrong)
+            bad.append((float(torch.sqrt(wrong)), clips[-1][1]))
+        return real_clip(tree, max_norm, norm)
+
+    if mesh is not None:
+        TS.clip_by_global_norm = spy
+    sync = (lambda: torch.cuda.synchronize(dev)) if on_card else (
+        lambda: None)
+    KU.reset_launches()
+    comm.reset_counts()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    losses, gnorms, ms = [], [], []
+    try:
+        with SH.use_rules(rules, mesh), (
+                comm.timed() if timed else contextlib.nullcontext()):
+            step = TS.make_train_step(cfg, tc, 1)
+            for b in batches:
+                sync()
+                t0 = time.perf_counter()
+                state, met = step(state, b)
+                sync()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                losses.append(float(met["loss"]))
+                gnorms.append(float(met["grad_norm"]))
+    finally:
+        TS.clip_by_global_norm = real_clip
+    mem = TR.leaves(memory_of(state))
+    p_leaves = TR.leaves(state.params)
+    if mesh is None:
+        rms = [float(torch.sqrt(torch.mean(torch.square(t.float()))))
+               for t in p_leaves]
+    out = {"losses": losses, "grad_norms": gnorms, "clips": clips,
+           "bad_clip": bad, "ms_per_step": ms,
+           "launches": dict(ops.LAUNCHES),
+           "groups": {g: {op: dict(c) for op, c in o.items()}
+                      for g, o in comm.GROUP_COUNTS.items()},
+           "staged": {op: c["staged"] for op, c in comm.COUNTS.items()},
+           "peak_bytes": torch.cuda.max_memory_allocated(dev) if on_card
+           else 0,
+           "state_bytes": sum(t.numel() * t.element_size()
+                              for t in p_leaves + mem),
+           "n_leaves": len(p_leaves), "names": leaf_names(state.params),
+           "params": p_leaves}
+    if mesh is None:
+        out["rms"] = rms
+    else:
+        sp = TR.leaves(specs)
+        out["replicated_bit_equal"] = _replicas_equal(
+            p_leaves + mem, sp + [SH.P(None, *s) for s in sp], mesh)
+        out["specs"] = sp
+    return out
+
+
+def fsdp_moe_forward(dev, mesh=None) -> dict:
+    """Layer 0's ``moe_mlp`` of qwen3-moe-30b-a3b (the seed-0 draw) on
+    the agent's FSDP["batch"] x FSDP["seq"] rows of seeded activations, in
+    one process or on this rank's row under ``build_rules`` (its fsdp
+    leaves gathered by ``layer_gather``): (the output of those rows, the
+    aux loss)."""
+    import torch
+    from repro_torch import tree as TR
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import transformer as TM
+    from repro_torch.training import train_step as TS
+
+    cfg = _fsdp_cfg(MOE_ARCH, FSDP_MOE["n_layers"])
+
+    def draw():
+        return TM.init_params(torch.Generator(device=dev).manual_seed(0),
+                              cfg, (), dev)
+
+    x = torch.randn((FSDP["batch"], FSDP["seq"], cfg.d_model),
+                    generator=torch.Generator(device=dev).manual_seed(1),
+                    device=dev).to(L.dtype_of(cfg.param_dtype))
+    rules = None
+    if mesh is not None:
+        rules = TS.build_rules(cfg, False)
+        specs = TS.param_specs(TM.init_params(torch.Generator(), cfg, (),
+                                              "meta"), rules, mesh, False)
+        full = _drawn_and_cut(draw, specs, mesh, dev)
+        x = x[SH.mesh_coords(mesh)["data"]][None]
+    else:
+        full = draw()
+    layer = TR.tree_map(lambda t: t[0], full["blocks"])
+    with torch.no_grad(), SH.use_rules(rules, mesh):
+        gather = TM.layer_gather(cfg, "blocks")
+        if gather is not None:
+            layer = gather(layer)
+        out, aux = MOE.moe_mlp(layer["moe"], x, cfg)
+    return {"out": out.float().cpu(), "aux": float(aux)}
+
+
+def fsdp_serve(dev, mesh=None) -> dict:
+    """qwen3-32b's serving units of FSDP_SERVE in f32 from the seed-0 draw,
+    in one process or on this rank's shards and row under
+    ``serve_rules(..., weights_fsdp=True)``: the prefill's last logits,
+    then greedy decode's logits and tokens, gathered whole; ms."""
+    import numpy as np
+    import torch
+    from repro_torch import convert as CV
+    from repro_torch.distributed import comm
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.models import decode as D
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as TM
+    from repro_torch.serving import engine as E
+    from repro_torch.training import train_step as TS
+
+    cfg = _fsdp_cfg(FSDP_ARCH, FSDP_SERVE["n_layers"], "float32")
+
+    def draw():
+        return TM.init_params(torch.Generator(device=dev).manual_seed(0),
+                              cfg, (), dev)
+
+    B, S = FSDP_SERVE["prefill"]
+    batch = {"tokens": torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (B, S)), device=dev)}
+    V = cfg.vocab
+    rules = None
+    if mesh is not None:
+        rules = TS.serve_rules(cfg, False, B, mesh, weights_fsdp=True)
+        specs = TS.param_specs(TM.init_params(torch.Generator(), cfg, (),
+                                              "meta"), rules, mesh, False)
+        params = _drawn_and_cut(draw, specs, mesh, dev)
+        batch = CV.shard_tree(batch, TS.batch_specs_serve(batch, rules,
+                                                          mesh), mesh, dev)
+    else:
+        params = draw()
+
+    def whole(t, spec, shape):
+        return t if mesh is None else SH.gather(t.contiguous(), spec, mesh,
+                                                shape)
+
+    sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" \
+        else (lambda: None)
+    out = {}
+    with torch.no_grad(), SH.use_rules(rules, mesh):
+        sync()
+        t0 = time.perf_counter()
+        lg = E.make_prefill(cfg)(params, batch)
+        sync()
+        out["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+        out["prefill"] = whole(lg, SH.P("data", "model"), (B, V)).float(
+        ).cpu()
+        cache = D.init_cache(cfg, B, FSDP_SERVE["max_len"], device=dev)
+        if mesh is not None:
+            cache = CV.shard_tree(cache, TS.cache_specs(cache, rules, mesh),
+                                  mesh, dev)
+        tok, logits, toks, ms = batch["tokens"][:, :1], [], [], []
+        calls = {op: 0 for op in comm.OPS}            # the decode steps'
+        for t in range(FSDP_SERVE["decode_steps"]):
+            sync()
+            before = {k: comm.COUNTS[k]["calls"] for k in calls}
+            t0 = time.perf_counter()
+            lg, cache = D.decode_step(params, cache, tok, t, cfg)
+            tok = L.vocab_argmax(lg[:, -1], cfg.vocab)[:, None]
+            sync()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            for k in calls:
+                calls[k] += comm.COUNTS[k]["calls"] - before[k]
+            logits.append(whole(lg[:, -1], SH.P("data", "model"),
+                                (B, V)).float().cpu())
+            toks.append(whole(tok[:, 0], SH.P("data"), (B,)).cpu())
+    out["logits"], out["tokens"] = torch.stack(logits), torch.stack(toks)
+    out["decode_ms"] = ms
+    out["decode_calls_per_step"] = {k: v / len(ms) for k, v in calls.items()
+                                    if v}
+    return out
+
+
+def _fsdp_vs(mine: dict, ref: dict, mesh) -> dict:
+    """A train run on this rank against the one-process run: losses, the
+    clip norm against the spec tree's, replicas bit-equal (``held``,
+    parameters aside), and each local shard against the same slice of the
+    one-process parameters in bf16 ulps of the larger of the element and
+    its leaf's RMS (``param_ulps``, which ``fsdp_phase`` holds)."""
+    import torch
+    from repro_torch.distributed import sharding as SH
+
+    sizes, coords = SH.mesh_axis_sizes(mesh), SH.mesh_coords(mesh)
+    ulps, share = {}, 0.0
+    for name, got, spec, want, rms in zip(mine["names"], mine["params"],
+                                          mine["specs"], ref["params"],
+                                          ref["rms"]):
+        w = want[SH.local_slice(want.shape, spec, sizes, coords)].to(
+            got.device).float()
+        d = (got.float() - w).abs()
+        ulps[name] = float((d / (torch.clamp(w.abs(), min=rms)
+                                 * 2.0 ** -7)).max())
+        share = max(share, float((d > 0).float().mean()))
+    ok_l, err_l = close_np(mine["losses"], ref["losses"], DIST_LOSS_TOL)
+    ok_c, err_c = close_np([c[0] for c in mine["clips"]],
+                           [c[1] for c in mine["clips"]], TP_NORM_TOL)
+    return {"held": ok_l and ok_c and mine["replicated_bit_equal"],
+            "losses": mine["losses"], "ref_losses": ref["losses"],
+            "max_abs_loss_diff": err_l, "clip_norms": mine["clips"],
+            "max_abs_clip_norm_diff": err_c, "param_ulps": ulps,
+            "param_share_differing": share,
+            "replicated_bit_equal": mine["replicated_bit_equal"],
+            "launches": mine["launches"], "n_leaves": mine["n_leaves"],
+            "ms_per_step": mine["ms_per_step"],
+            "ref_ms_per_step": ref["ms_per_step"],
+            "groups": mine["groups"], "staged": mine["staged"],
+            "peak_bytes": mine["peak_bytes"],
+            "ref_peak_bytes": ref["peak_bytes"],
+            "state_bytes": mine["state_bytes"],
+            "state_share": mine["state_bytes"] / ref["state_bytes"]}
+
+
+def _planted_fsdp(name):
+    """(module, attribute, faulty replacement) of a planted fault."""
+    from repro_torch import tree as TR
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import transformer as TM
+    from repro_torch.training import train_step as TS
+
+    if name == "replicated_counted_on_every_data_rank":
+        import torch
+
+        def counted(cfg, n_agents, rules, mesh):
+            # the model axis alone: a leaf on model rank 0 counts on both
+            # data ranks
+            shapes = TM.init_params(torch.Generator(), cfg, (n_agents,),
+                                    "meta")
+            specs = TS.param_specs(shapes, rules, mesh)
+            m = SH.mesh_coords(mesh)["model"]
+            return [m == 0 or any("model" in SH.axes_of(p) for p in s)
+                    for s in TR.leaves(specs)]
+        return TS, "model_counted", counted
+    if name == "batch_sum_skipped":
+        return TS, "batch_summed", lambda *a, **k: [False] * len(
+            TS._leaf_axes(*a, **k))
+    return MOE, "_over_batch", lambda t: (t, 1)
+
+
+def _fsdp_by_group(groups: dict, steps: int) -> dict:
+    """Calls and MB a step of each collective, by group label."""
+    return {g: {op: {"calls": c["calls"] / steps,
+                     "MB": c["bytes"] / steps / 1e6,
+                     "ms": c["ms"] / steps}
+                for op, c in o.items()}
+            for g, o in groups.items()}
+
+
+def _fsdp_rank(rank: int, world: int, tmp: str, device: str) -> None:
+    """One of the four ranks of the fsdp phase: the train runs of
+    FSDP_RUNS (qwen3-32b's timed, the clip norm of the planted counting
+    read from its first step), the other planted faults (one on
+    qwen3-moe's train step, one on its layer 0's forward), that forward,
+    the serving units; each against the one-process runs in ``tmp``;
+    results to ``tmp/fsdp<r>.json``."""
+    import torch
+    from repro_torch.device import set_full_precision
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch import mesh as ML
+
+    # four ranks' states and their transient f32 copies share the card:
+    # segments that grow keep the allocator's cache from fragmenting
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    set_full_precision()
+    t_start = time.perf_counter()
+    mesh = ML.make_host_mesh(FSDP["mesh"][1])
+    ref = torch.load(os.path.join(tmp, "fsdp_ref.pt"), mmap=True)
+    coords = SH.mesh_coords(mesh)
+    res = {"rank": rank, "coords": coords}
+    torch.distributed.barrier()
+    res["planted"] = {}
+    for key, (arch, n, exact, steps) in FSDP_RUNS.items():
+        dense = key == "dense"
+        run = fsdp_train(dev, arch, n, _fsdp_tc(exact), steps, mesh,
+                         timed=dense, bad_counted=_planted_fsdp(
+                             FSDP_PLANTED[0])[2] if dense else None)
+        res[key] = _fsdp_vs(run, ref[key], mesh)
+        if dense:
+            ok, err = close_np(*map(list, zip(*run["bad_clip"])),
+                               TP_NORM_TOL)
+            res["planted"][FSDP_PLANTED[0]] = {
+                "passes_the_check": ok, "max_abs_clip_norm_diff": err,
+                "clip_norms": run["bad_clip"]}
+        del run
+    for name in FSDP_PLANTED[1:]:
+        mod, attr, bad = _planted_fsdp(name)
+        real = getattr(mod, attr)
+        setattr(mod, attr, bad)
+        try:
+            if name == "load_balance_over_local_means":
+                aux = fsdp_moe_forward(dev, mesh)["aux"]
+                ok, err = close_np([aux], [ref["moe_aux"]["aux"]],
+                                   FSDP_AUX_TOL)
+                res["planted"][name] = {"passes_the_check": ok,
+                                        "max_abs_aux_diff": err}
+                continue
+            run = fsdp_train(dev, MOE_ARCH, FSDP_MOE["n_layers"],
+                             _fsdp_tc(), FSDP["planted_steps"], mesh)
+        finally:
+            setattr(mod, attr, real)
+        k = FSDP["planted_steps"]
+        ok_l, err_l = close_np(run["losses"], ref["moe"]["losses"][:k],
+                               DIST_LOSS_TOL)
+        ok_c, err_c = close_np([c[0] for c in run["clips"]],
+                               [c[1] for c in run["clips"]], TP_NORM_TOL)
+        res["planted"][name] = {
+            "passes_the_check": ok_l and ok_c and run[
+                "replicated_bit_equal"],
+            "max_abs_loss_diff": err_l, "max_abs_clip_norm_diff": err_c,
+            "replicated_bit_equal": run["replicated_bit_equal"]}
+        del run
+    fwd = fsdp_moe_forward(dev, mesh)
+    want = ref["moe_aux"]
+    d_rank = coords["data"]
+    ok_a, err_a = close_np([fwd["aux"]], [want["aux"]], FSDP_AUX_TOL)
+    res["moe_forward"] = {
+        "held": ok_a, "aux": fwd["aux"], "ref_aux": want["aux"],
+        "max_abs_aux_diff": err_a,
+        "out_max_abs_err": float((fwd["out"][0] - want["out"][d_rank])
+                                 .abs().max()),
+        "ref_out_max_abs": float(want["out"].abs().max())}
+    serve = fsdp_serve(dev, mesh)
+    want = ref["serve"]
+    ok_p, err_p = close_np(serve["prefill"], want["prefill"], TP_SERVE_TOL)
+    ok_d, err_d = close_np(serve["logits"], want["logits"], TP_SERVE_TOL)
+    same = torch.equal(serve["tokens"], want["tokens"])
+    res["serve"] = {"held": ok_p and ok_d and same,
+                    "prefill_max_abs_err": err_p,
+                    "decode_max_abs_err": err_d, "tokens_equal": same,
+                    "prefill_ms": serve["prefill_ms"],
+                    "ref_prefill_ms": want["prefill_ms"],
+                    "median_decode_ms": statistics.median(
+                        serve["decode_ms"][1:]),
+                    "ref_median_decode_ms": statistics.median(
+                        want["decode_ms"][1:]),
+                    "decode_calls_per_step": serve["decode_calls_per_step"]}
+    res["seconds"] = time.perf_counter() - t_start
+    with open(os.path.join(tmp, f"fsdp{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def fsdp_phase(dev) -> dict:
+    """The fsdp and batch rules on the card (FSDP): the one-process runs
+    first, then four gloo ranks, each held against them (a leaf's
+    parameters past DIST_ULPS against TP_SPREAD_FACTOR times the
+    one-process run's own spread through cuBLASLt, run after the ranks
+    where one is); the planted faults must fail."""
+    import torch
+    from repro_torch.distributed import comm
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fsdp_")
+    torch.cuda.empty_cache()
+    ref, summary = {}, {}
+    for key, (arch, n, exact, steps) in FSDP_RUNS.items():
+        run = fsdp_train(dev, arch, n, _fsdp_tc(exact), steps)
+        run["params"] = [t.cpu() for t in run["params"]]
+        torch.cuda.empty_cache()
+        check(all(v > DIST["grad_clip"] for v in run["grad_norms"]),
+              f"fsdp one-process {key}: the clip does not bind: "
+              f"{run['grad_norms']}")
+        ref[key] = run
+        summary[key] = {k: run[k] for k in ("losses", "grad_norms",
+                                            "ms_per_step", "launches",
+                                            "peak_bytes", "state_bytes")}
+    ref["moe_aux"] = fsdp_moe_forward(dev)
+    ref["serve"] = fsdp_serve(dev)
+    summary["serve"] = {"prefill_ms": ref["serve"]["prefill_ms"],
+                        "median_decode_ms": statistics.median(
+                            ref["serve"]["decode_ms"][1:])}
+    path = os.path.join(tmp, "fsdp_ref.pt")
+    torch.save(ref, path)
+    del ref
+    torch.cuda.empty_cache()
+    one_s = time.perf_counter() - t_phase
+    n = FSDP["mesh"][0] * FSDP["mesh"][1]
+    t_ranks = time.perf_counter()
+    comm.spawn(_fsdp_rank, n, tmp, str(dev), backend="gloo", store_dir=tmp)
+    ranks_s = time.perf_counter() - t_ranks
+    ranks = []
+    for r in range(n):
+        with open(os.path.join(tmp, f"fsdp{r}.json")) as f:
+            ranks.append(json.load(f))
+    spread = {}
+    for key, (arch, n_layers, exact, steps) in FSDP_RUNS.items():
+        if any(u > DIST_ULPS for r in ranks
+               for u in r[key]["param_ulps"].values()):
+            # the one-process run's own spread, where a rank is past the
+            # limit
+            with cublaslt():
+                alt = fsdp_train(dev, arch, n_layers, _fsdp_tc(exact), steps)
+            spread[key] = param_ulps(alt["names"], alt["params"], torch.load(
+                path, mmap=True)[key]["params"])[0]
+            del alt
+            torch.cuda.empty_cache()
+    for r in ranks:
+        tag = f"fsdp rank {r['rank']} {r['coords']}"
+        for key, (_, _, exact, steps) in FSDP_RUNS.items():
+            x = r[key]
+            limit = {k: max(DIST_ULPS, TP_SPREAD_FACTOR
+                            * spread.get(key, {}).get(k, 0.0))
+                     for k in x["param_ulps"]}
+            worst = sorted(x["param_ulps"].items(), key=lambda kv: kv[1],
+                           reverse=True)[:3]
+            x["param_worst_leaves"] = worst
+            x["param_ulps_limits_over_2"] = {k: v for k, v in limit.items()
+                                             if v > DIST_ULPS}
+            check(x["held"] and all(u <= limit[k] for k, u in
+                                    x["param_ulps"].items()),
+                  f"{tag} {key}: loss {x['max_abs_loss_diff']}, clip norm "
+                  f"{x['max_abs_clip_norm_diff']}, parameters {worst} bf16 "
+                  f"ulps, replicas equal {x['replicated_bit_equal']}")
+            kernel = "frodo_exact_update" if exact else "frodo_expsum_update"
+            want = {"frodo_exact_update": 0, "frodo_expsum_update": 0,
+                    kernel: x["n_leaves"] * steps}
+            check(x["launches"] == want,
+                  f"{tag} {key}: launches {x['launches']}, want {want}")
+            check(x["state_share"] <= FSDP_STATE_SHARE,
+                  f"{tag} {key}: state share {x['state_share']}")
+        check(r["moe_forward"]["held"],
+              f"{tag}: MoE aux {r['moe_forward']['aux']} against "
+              f"{r['moe_forward']['ref_aux']}")
+        s = r["serve"]
+        check(s["held"], f"{tag} serving: prefill {s['prefill_max_abs_err']}"
+              f", decode {s['decode_max_abs_err']}, tokens equal "
+              f"{s['tokens_equal']}")
+    for name in FSDP_PLANTED:
+        check(not all(r["planted"][name]["passes_the_check"] for r in ranks),
+              f"planted {name} passed the check on every rank")
+    peaks = {k: sum(r[k]["peak_bytes"] for r in ranks) for k in FSDP_RUNS}
+    check(all(v <= FSDP_PEAK_SUM for v in peaks.values()),
+          f"fsdp: the ranks' peaks summed {peaks}")
+    for k in FSDP_RUNS:
+        check(summary[k]["peak_bytes"] <= LLM_PEAK_LIMIT,
+              f"fsdp one-process {k}: peak {summary[k]['peak_bytes']}")
+    per_rank = []
+    for r in ranks:
+        row = {"rank": r["rank"], "coords": r["coords"],
+               "seconds": r["seconds"], "planted": r["planted"],
+               "moe_forward": r["moe_forward"], "serve": r["serve"]}
+        for k, (_, _, _, steps) in FSDP_RUNS.items():
+            x = dict(r[k])
+            x.pop("param_ulps")
+            x["by_group_per_step"] = _fsdp_by_group(x.pop("groups"), steps)
+            x["median_ms_per_step"] = statistics.median(
+                x["ms_per_step"][1:] or x["ms_per_step"])
+            row[k] = x
+        per_rank.append(row)
+    emit("fsdp", nvidia_smi=nvidia_smi(), arch=FSDP_ARCH, moe_arch=MOE_ARCH,
+         mesh=FSDP["mesh"], settings=FSDP, moe=FSDP_MOE, serve=FSDP_SERVE,
+         reduced=FSDP_REDUCED, grad_clip=DIST["grad_clip"],
+         tol={"loss": DIST_LOSS_TOL, "clip_norm": TP_NORM_TOL,
+              "param_bf16_ulps_of_leaf_rms": DIST_ULPS,
+              "one_process_spread_factor": TP_SPREAD_FACTOR,
+              "serve_f32": TP_SERVE_TOL, "moe_aux": FSDP_AUX_TOL,
+              "state_share": FSDP_STATE_SHARE, "peak_sum": FSDP_PEAK_SUM},
+         one_process=summary, one_process_seconds=one_s,
+         ranks_seconds=ranks_s, peak_bytes_summed=peaks,
+         one_process_spread_worst_leaves={
+             k: sorted(v.items(), key=lambda kv: kv[1], reverse=True)[:3]
+             for k, v in spread.items()}, per_rank=per_rank,
+         seconds=time.perf_counter() - t_phase)
+    launches = {}
+    for k in FSDP_RUNS:
+        tot = {"frodo_exact_update": 0, "frodo_expsum_update": 0}
+        for ln in [r[k]["launches"] for r in ranks]:
+            for name in tot:
+                tot[name] += ln[name]
+        launches[f"fsdp_{k}_4ranks"] = tot
+        launches[f"fsdp_{k}_one_process"] = summary[k]["launches"]
+    return {"launches": launches,
+            "per_rank": {k: [r[k]["launches"] for r in ranks]
+                         for k in FSDP_RUNS}}
+
 def main() -> int:
     import numpy as np
     import torch
@@ -4416,6 +5123,8 @@ def main() -> int:
     dist_launches = dist["launches"]
     tp = tensor_parallel_phase(dev, dist["ref_dir"])
     dist_launches.update(tp["launches"])
+    fsdp = fsdp_phase(dev)
+    dist_launches.update(fsdp["launches"])
     per_path = {name: {"exp2": launches_exp2[name],
                        "exp1_point": launches_exp1[name],
                        "exp3": launches_exp3[name],
@@ -4601,6 +5310,9 @@ def main() -> int:
          "shape": [T] + list(EXP2_LEAVES["w0"]), "dtype": "float32",
          **{k: ex[k] for k in keys}, "llm_bf16_at_embed": llm["exact"],
          "tensor_parallel_launches_per_rank": tp["per_rank_exact"],
+         "fsdp_launches_per_rank": {
+             k: [r["frodo_exact_update"] for r in v]
+             for k, v in fsdp["per_rank"].items()},
          "bench": bench_rows(bench, "exact")},
         {"name": "frodo_expsum_update", "route": "cuda", "source": src,
          "replaces": "src/repro/kernels/frodo_update.py:93",
@@ -4615,6 +5327,9 @@ def main() -> int:
          "llm_hybrid_largest_leaf": hyb["kernels"],
          "llm_bf16g_k4_bf16acc_at_embed": hyb["expsum_k4_at_embed"],
          "tensor_parallel_launches_per_rank": tp["per_rank_expsum"],
+         "fsdp_launches_per_rank": {
+             k: [r["frodo_expsum_update"] for r in v]
+             for k, v in fsdp["per_rank"].items()},
          "bench": bench_rows(bench, "expsum")},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

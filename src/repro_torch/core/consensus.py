@@ -50,8 +50,13 @@ def mix_stacked(x: Tree, W, with_metrics: bool = False):
         scope = "consensus.mix_uniform"
 
         def leaf(v):
-            m = torch.mean(v.float(), dim=0, keepdim=True).to(v.dtype)
-            return m.expand_as(v).contiguous()
+            # per column, so in column slices (obs.metrics.col_slices)
+            out = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+            x, o = v.reshape(v.shape[0], -1), out.view(v.shape[0], -1)
+            for i, j in obs_metrics.col_slices(x.shape[1]):
+                o[:, i:j] = torch.mean(x[:, i:j].float(), dim=0,
+                                       keepdim=True).to(v.dtype)
+            return out
     else:
         scope = "consensus.mix_general"
         Wt = torch.as_tensor(W, dtype=torch.float32,

@@ -5,8 +5,9 @@ milliseconds per op.
 Backends are the caller's choice: ``nccl`` where each rank has its own
 card, ``gloo`` for CPU ranks and for ranks that share one card.  Gloo runs
 ``all_reduce`` on CUDA tensors itself (through host memory inside gloo);
-it has no ``all_gather`` and no point-to-point ops for CUDA tensors, so on
-a gloo group those two stage a CUDA tensor through host memory here,
+it has no ``all_gather``, ``reduce_scatter`` or point-to-point ops for
+CUDA tensors, so on a gloo group those stage a CUDA tensor through host
+memory here,
 explicitly (``staged`` in the counts).  No op falls back to another
 backend.
 
@@ -25,6 +26,12 @@ backward this rank's slice of the gradient) puts a split activation back
 together where a replicated consumer needs all of it (MLA's latent and its
 output columns).
 
+The fsdp rule splits a weight over the data axes: ``gather_from_data``
+(forward an all-gather along the split dim, backward the gradient's
+``reduce_scatter``: each rank's rows give a part of every element's
+gradient, summed over the group in f32, and each rank keeps its block)
+puts a layer's weight together at use.
+
 On the ``meta`` device (the dry-run's shape-only steps) an op is counted
 and not issued: its result has the right shape and no values.
 """
@@ -39,9 +46,10 @@ from typing import Any, Callable, Dict, Optional
 import torch
 import torch.distributed as dist
 
-OPS = ("all_reduce", "all_gather", "send_recv")
+OPS = ("all_reduce", "all_gather", "reduce_scatter", "send_recv")
 #: each op's kind in the JAX package's partitioned HLO (the dry-run's names)
 HLO_KIND = {"all_reduce": "all-reduce", "all_gather": "all-gather",
+            "reduce_scatter": "reduce-scatter",
             "send_recv": "collective-permute"}
 
 #: per op: calls, bytes (each rank's input), ms (host clock, only while
@@ -227,6 +235,54 @@ def all_gather(t: torch.Tensor, group: Any = None) -> torch.Tensor:
         out = src.new_empty((dist.get_world_size(group),) + tuple(t.shape))
         dist.all_gather(list(out.unbind(0)), src, group=group)
     return out.to(t.device) if staged else out
+
+
+def reduce_scatter(t: torch.Tensor, dim: int, group: Any = None
+                   ) -> torch.Tensor:
+    """This rank's block along ``dim`` of the sum of every rank's ``t``
+    over the group (``dim`` split into world blocks in rank order),
+    summed in f32 and rounded once to ``t``'s dtype, as ``_sum_f32``
+    does.  The count is of the f32 input."""
+    label, group = _label(group), resolve_group(group)
+    w = dist.get_world_size(group)
+    dim %= t.dim()
+    if t.shape[dim] % w:
+        raise ValueError(f"a dim of {t.shape[dim]} over {w} ranks")
+    n = t.shape[dim] // w
+    f = t.to(torch.float32)
+    if f.is_meta:
+        with _counted("reduce_scatter", f, False, label):
+            return t.new_empty(t.shape[:dim] + (n,) + t.shape[dim + 1:])
+    staged = _staged(group, t)
+    with _counted("reduce_scatter", f, staged, label):
+        # gloo has no reduce_scatter for CUDA tensors: through host memory
+        src = f.detach().cpu() if staged else f.detach()
+        parts = [p.contiguous() for p in src.movedim(dim, 0).chunk(w)]
+        out = torch.empty_like(parts[0])
+        dist.reduce_scatter(out, parts, group=group)
+    out = out.movedim(0, dim)
+    return (out.to(t.device) if staged else out).to(t.dtype)
+
+
+class _GatherFromData(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        parts = all_gather(x.contiguous(), group)       # (world, ...)
+        return parts.movedim(0, dim).flatten(dim, dim + 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter(g, ctx.dim, ctx.group), None, None
+
+
+def gather_from_data(x: torch.Tensor, dim: int, group: Any) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim`` in rank order (one
+    all-gather, exact): an fsdp-split weight put together at use.  The
+    backward reduce-scatters the gradient: each rank's rows give a part of
+    every element's gradient, and the sum over the group (in f32) of this
+    rank's block is its shard's gradient."""
+    return _GatherFromData.apply(x, dim % x.dim(), group)
 
 
 def shift(t: torch.Tensor, k: int, group: Any = None) -> torch.Tensor:

@@ -300,13 +300,18 @@ def axes_of(p: Any) -> Tuple[str, ...]:
 def axes_group(mesh, axes: Sequence[str]):
     """A ``distributed.comm`` group over the ranks that differ only in
     ``axes``: ``(mesh, name)`` for one axis, the default group for every
-    axis of a mesh that spans it, a flattened sub-mesh's group otherwise."""
+    axis of a mesh that spans it, a flattened sub-mesh's group otherwise
+    (made once per mesh and axes: its ranks in the order of the axes'
+    coordinates, major first)."""
     axes = tuple(axes)
     if len(axes) == 1:
         return (mesh, axes[0])
     if set(axes) == set(mesh.mesh_dim_names):
         return None
-    return mesh[axes]._flatten().get_group()
+    made = mesh.__dict__.setdefault("_axes_groups", {})
+    if axes not in made:
+        made[axes] = mesh[axes]._flatten().get_group()
+    return made[axes]
 
 
 def split_index(p: Any, sizes: Dict[str, int],
@@ -375,3 +380,60 @@ def kv_seq_split() -> Optional[SeqSplit]:
     if n == 1:
         return None
     return SeqSplit(axes_group(mesh, axes), idx, n)
+
+
+# ------------------------------------------------------------ data axes
+# The "batch" rule splits an agent's rows over the data axes it names, the
+# "fsdp" rule one dim of each layer's weights (``PARAM_AXIS_PATTERNS``'
+# "fsdp" entries).  A rank holds its rows and its shards; the models gather
+# a layer's shards at use (``transformer.layer_gather``).
+
+class DataAxes(NamedTuple):
+    group: Any               # a ``distributed.comm`` group over the axes
+    size: int                # the product of their sizes (> 1)
+    rank: int                # this rank's block over them, major first
+
+
+def data_axes(rule: str) -> Optional[DataAxes]:
+    """The mesh axes that the active ``rule`` ("batch" or "fsdp") spans,
+    when rules and a mesh are active and their product is wider than 1,
+    else None."""
+    mesh, rules = current_mesh(), current_rules()
+    if rules is None or mesh is None:
+        return None
+    axes = axes_of(rules.get(rule))
+    sizes = mesh_axis_sizes(mesh)
+    idx, n = split_index(axes, sizes, mesh_coords(mesh)) if axes else (0, 1)
+    if n == 1:
+        return None
+    return DataAxes(axes_group(mesh, axes), n, idx)
+
+
+def fsdp_dims(shapes: Dict[str, Sequence[int]],
+              rules: Dict[str, Any], sizes: Dict[str, int]
+              ) -> Dict[str, int]:
+    """Per leaf of a whole (unsharded, not agent-stacked) parameter tree,
+    ``{path: shape}``: the dim of one layer's leaf (its layer dim dropped)
+    that the "fsdp" rule splits, for the leaves whose spec
+    (``param_spec`` of ``PARAM_AXIS_PATTERNS``, sanitized against
+    ``shape``) splits one; leaves it leaves whole are not listed.  Every
+    such leaf lies in a layer stack: the patterns name "fsdp" only on
+    attention, MLP, MoE, mamba2 and RG-LRU weights, which live in
+    ``blocks``, ``dense_blocks``, ``enc_blocks``, ``groups`` and
+    ``tail_blocks``; a split leaf outside one raises."""
+    fsdp = set(axes_of(rules.get("fsdp")))
+    out: Dict[str, int] = {}
+    if not fsdp:
+        return out
+    for path, shape in shapes.items():
+        stacked = "blocks" in path or "layers" in path or "groups" in path
+        spec = param_spec(path, len(shape) + 1, stacked, rules)[1:]
+        spec = divisible_spec(spec, shape, sizes)
+        dims = [d for d, p in enumerate(spec) if fsdp & set(axes_of(p))]
+        if not dims:
+            continue
+        if not stacked:
+            raise ValueError(f"{path}: an fsdp-split leaf outside a layer "
+                             f"stack")
+        out[path] = dims[0] - 1
+    return out

@@ -33,7 +33,9 @@ counterpart of lowering without running, so here:
 ``--both-meshes`` (16x16 ("data", "model") and 2x16x16) write the
 production-mesh records instead of the one-card one, as the JAX flags
 choose meshes: each mesh is built with ``launch.mesh.make_production_mesh``
-on a ``fake`` process group of its size in this one process, and each
+on a ``fake`` process group of its size in one process (with
+``--both-meshes`` the 2x16x16 one in a second process beside this one),
+and each
 record holds ``n_agents`` (``train_step.n_agents_for``), the ``rules``
 (``build_rules`` for train, ``serve_rules`` for prefill and decode; each
 value as its ``str``) and ``memory``: the per-device argument bytes, each
@@ -42,23 +44,21 @@ leaf's local shard under the sanitized specs of the JAX dry-run's
 cache and tokens), summed by part, and ``analytic`` as in the one-card
 record.
 
-The collective record: where the port runs the (arch, shape) tensor-
-parallel (the dense family with GQA or MLA, vision, MoE and audio; train
-only without the fsdp rule),
-rank 0's step of the shape's unit (``make_train_step``, ``make_prefill``,
-``make_serve_step``) runs at the shape's full size on ``meta`` tensors
-(its local shards under the specs) under the rules and the mesh, and
-``distributed.comm`` counts each collective it would issue: at full depth
-(``collectives``: ``bytes_by_kind``, ``counts`` and
-``effective_bytes_per_device`` under the JAX dry-run's HLO kind names and
-its ring factors ``COLL_FACTOR``) and at scan trip counts 2 and 3,
-extrapolated affine in L (``extrapolated.collective_bytes_by_kind`` and
+The collective record: rank 0's step of the shape's unit
+(``make_train_step``, ``make_prefill``, ``make_serve_step``) runs at the
+shape's full size on ``meta`` tensors (its local shards under the specs)
+under the rules and the mesh, and ``distributed.comm`` counts each
+collective it would issue: at full depth (``collectives``:
+``bytes_by_kind``, ``counts`` and ``effective_bytes_per_device`` under the
+JAX dry-run's HLO kind names and its ring factors ``COLL_FACTOR``) and at
+scan trip counts 2 and 3, extrapolated affine in L
+(``extrapolated.collective_bytes_by_kind`` and
 ``collective_effective_bytes_per_device``), as the JAX dry-run reads them
 from XLA's partitioned HLO.  The train unit is ``TRAIN_CONFIG`` with the
 update's plain version (a kernel takes no meta tensor; it issues no
-collective).  Every other record holds ``collectives: null`` and a
-``collectives_reason``.  Records are JSON files in ``--out``
-(``experiments/dryrun_torch``), read by
+collective) and one microbatch, where the JAX dry-run lowers its train
+records at ``TrainConfig(microbatches=8)``.  Records are JSON files in
+``--out`` (``experiments/dryrun_torch``), read by
 ``repro_torch.experiments.roofline``.
 """
 from __future__ import annotations
@@ -202,21 +202,14 @@ COLL_FACTOR = {"all-gather": 1.0, "all-reduce": 2.0, "reduce-scatter": 1.0,
                "all-to-all": 1.0, "collective-permute": 1.0}
 
 
-def collectives_reason(cfg: ModelConfig, shape: InputShape) -> Optional[str]:
-    """None where the port runs (cfg, shape) tensor-parallel and so can
-    count its collectives; else why there is no collective record."""
-    if shape.kind == "train" and cfg.fsdp:
-        return ("training under the fsdp rule waits for ROADMAP queue 1 "
-                "item 5.1.7; no collectives to count")
-    return None
-
-
 def run_unit(cfg: ModelConfig, shape: InputShape, mesh, multi_pod: bool,
-             tc: TS.TrainConfig, device) -> None:
+             tc: TS.TrainConfig, device, weights_fsdp: bool = False) -> None:
     """One step of ``shape``'s unit on this rank's local shards at the
     shape's full size, under its rules on ``mesh``: random parameters and
     zero tokens on ``device``, or shapes alone on ``meta``.  Every rank of
-    the mesh calls it (on ``meta`` in a ``fake`` world only rank 0 runs)."""
+    the mesh calls it (on ``meta`` in a ``fake`` world only rank 0 runs).
+    ``weights_fsdp``: a decode unit's weights split over the data axes too
+    (``serve_rules``'), as the JAX ``lower_decode`` takes it."""
     gen = (torch.Generator(device=device).manual_seed(0)
            if torch.device(device).type != "meta" else torch.Generator())
 
@@ -239,7 +232,8 @@ def run_unit(cfg: ModelConfig, shape: InputShape, mesh, multi_pod: bool,
         with SH.use_rules(rules, mesh):
             TS.make_train_step(cfg, tc, n_agents)(state, batch)
         return
-    rules = TS.serve_rules(cfg, multi_pod, shape.global_batch, mesh)
+    rules = TS.serve_rules(cfg, multi_pod, shape.global_batch, mesh,
+                           weights_fsdp and shape.kind == "decode")
     full = T.init_params(gen, cfg, (), device)
     params = CV.shard_tree(full, TS.param_specs(full, rules, mesh,
                                                 agent_stacked=False),
@@ -262,11 +256,12 @@ def run_unit(cfg: ModelConfig, shape: InputShape, mesh, multi_pod: bool,
 
 def count_collectives(cfg: ModelConfig, shape: InputShape, mesh,
                       multi_pod: bool, tc: TS.TrainConfig,
-                      device="meta") -> Dict[str, Any]:
+                      device="meta", weights_fsdp: bool = False
+                      ) -> Dict[str, Any]:
     """``run_unit``'s collectives on this rank: ``{"bytes_by_kind",
     "counts", "effective_bytes_per_device"}`` (the JAX dry-run's record)."""
     comm.reset_counts()
-    run_unit(cfg, shape, mesh, multi_pod, tc, device)
+    run_unit(cfg, shape, mesh, multi_pod, tc, device, weights_fsdp)
     got = comm.hlo_counts()
     per_kind = {k: float(v["bytes"]) for k, v in got.items()}
     return {"bytes_by_kind": per_kind,
@@ -292,10 +287,7 @@ def _affine_collectives(c2: Dict[str, Any], c3: Dict[str, Any],
 def collective_record(cfg: ModelConfig, shape: InputShape, mesh,
                       multi_pod: bool, tc: TS.TrainConfig) -> Dict[str, Any]:
     """``collectives`` and ``extrapolated`` of one record (see the module
-    docstring), or ``collectives: None`` and a ``collectives_reason``."""
-    reason = collectives_reason(cfg, shape)
-    if reason is not None:
-        return {"collectives": None, "collectives_reason": reason}
+    docstring)."""
     tc = dataclasses.replace(tc, use_kernel=False)
     L = REG.scan_trip_count(cfg)
     probes = {k: count_collectives(REG.reduced_layers(cfg, k), shape, mesh,
@@ -526,6 +518,17 @@ def _emit(rec: Dict[str, Any], out_dir: Optional[str]):
             json.dump(rec, f, indent=1)
 
 
+def _mesh_records(archs, shapes, multi_pod: bool, out_dir) -> int:
+    """``run_mesh``'s records; 1 if one is an error."""
+    recs = run_mesh(archs, shapes, multi_pod, out_dir)
+    return 1 if any(r["status"] == "error" for r in recs) else 0
+
+
+def _mesh_child(*args) -> None:
+    """``_mesh_records`` as a process's exit code."""
+    raise SystemExit(_mesh_records(*args))
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.launch.dryrun", description=__doc__,
@@ -553,10 +556,22 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     shapes = (list(INPUT_SHAPES) if args.all or not args.shape
               else [args.shape])
     if args.multi_pod or args.both_meshes:
-        recs = []
-        for mp in ([False, True] if args.both_meshes else [True]):
-            recs += run_mesh(archs, shapes, mp, args.out or None)
-        return 1 if any(r["status"] == "error" for r in recs) else 0
+        child = None
+        if args.both_meshes:
+            # the 2x16x16 records in a process of their own, side by side
+            import multiprocessing as mp
+
+            child = mp.get_context("spawn").Process(
+                target=_mesh_child, args=(archs, shapes, True,
+                                            args.out or None))
+            child.start()
+        try:
+            rc = _mesh_records(archs, shapes, not args.both_meshes,
+                               args.out or None)
+        finally:
+            if child is not None:
+                child.join()
+        return int(rc or (child is not None and child.exitcode != 0))
     n_bad = 0
     for arch in archs:
         for shape in shapes:

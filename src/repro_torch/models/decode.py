@@ -39,7 +39,9 @@ shards: the cache split as ``cache_specs`` lays it out (the
 self-attention, local-attention and latent caches' slots over "kv_seq",
 the cross K/V over "kv_heads", the SSM state over heads, the conv windows
 and the RG-LRU state over their channels), the logits this rank's vocab
-columns.
+columns.  Under ``serve_rules(..., weights_fsdp=True)`` ``_scan_over``
+gathers each layer's fsdp leaves over the data axes at use
+(``transformer.layer_gather``).
 """
 from __future__ import annotations
 
@@ -112,7 +114,11 @@ def encode_for_decode(params, cache, frames: torch.Tensor,
     of its output (the self-attention cache as it was)."""
     enc = T.encode(params, frames, cfg)
     xa = params["blocks"]["xattn"]
-    kv = [T.cross_kv(TR.tree_map(lambda t: t[i], xa), enc)
+    g = T.layer_gather(cfg, "blocks")
+    if g is None:
+        def g(layer, prefix):
+            return layer
+    kv = [T.cross_kv(g(TR.tree_map(lambda t: t[i], xa), "xattn/"), enc)
           for i in range(cfg.n_layers)]
     blocks = dict(cache["blocks"])
     for j, name in enumerate(("cross_k", "cross_v")):
@@ -187,19 +193,28 @@ def _hybrid_decode(params, cache, x, pos, cfg: ModelConfig):
 
     new_cache = dict(cache)
     x, new_cache["groups"] = _scan_over(params["groups"], cache["groups"],
-                                        group, x)
+                                        group, x,
+                                        T.layer_gather(cfg, "groups"))
     if "tail_blocks" in params:
         x, new_cache["tail_blocks"] = _scan_over(
             params["tail_blocks"], cache["tail_blocks"],
             lambda bp, c, h: _hybrid_sub_step(bp, c, h, "rec", pos, cfg,
-                                              ctx), x)
+                                              ctx), x,
+            T.layer_gather(cfg, "tail_blocks"))
     return x, new_cache
 
 
-def _scan_over(stacked_p, stacked_c, fn, x):
+def _scan_over(stacked_p, stacked_c, fn, x, gather=None):
     """``fn(layer_params, layer_cache, x) -> (x, layer_cache)`` over the
     layer stack; the new layer caches are stacked into a new tree (an
-    empty stack is returned as it was)."""
+    empty stack is returned as it was).  ``gather``
+    (``transformer.layer_gather``'s) puts each layer's fsdp leaves
+    together at use."""
+    if gather is not None:
+        inner = fn
+
+        def fn(bp, c, h):
+            return inner(gather(bp), c, h)
     flat_p, td_p = TR.flatten(stacked_p)
     flat_c, td_c = TR.flatten(stacked_c)
     if flat_p[0].shape[0] == 0:
@@ -237,10 +252,13 @@ def _audio_decode(params, cb, x, pos, cfg: ModelConfig, window: int):
     ctx = A.decode_context(pos, _cache_len(cb["self"].k.shape[2]), cfg,
                            window)
     x = x + L.sinusoid_at(pos, cfg.d_model)[:, None].to(x.dtype)
+    g = T.layer_gather(cfg, "blocks")
     x, new_self = _scan_over(
         {"p": params["blocks"], "cross_k": cb["cross_k"],
          "cross_v": cb["cross_v"]}, cb["self"],
-        lambda bp, c, h: _audio_decode_block(bp, c, h, pos, cfg, ctx), x)
+        lambda bp, c, h: _audio_decode_block(
+            bp if g is None else {**bp, "p": g(bp["p"])}, c, h, pos, cfg,
+            ctx), x)
     return x, {**cb, "self": new_self}
 
 
@@ -272,7 +290,8 @@ def decode_step(params, cache, tokens: torch.Tensor, pos: Position,
         for name in ("dense_blocks", "blocks"):     # the dense prefix first
             if name in params:
                 x, new_cache[name] = _scan_over(params[name], cache[name],
-                                                fn, x)
+                                                fn, x,
+                                                T.layer_gather(cfg, name))
     x = L.rmsnorm(params["ln_f"], x, cfg.norm_eps)
     return T.head(params, x, cfg), new_cache
 

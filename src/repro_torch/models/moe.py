@@ -41,6 +41,15 @@ once.  ``copy_to_model`` stands at the entry of the expert region, on the
 buffer and on ``top_w``, not on the router weight: the aux losses are
 computed whole on every rank, so the router's gradient is whole there.
 
+With the agent's rows split over the "batch" rule's data axes (the JAX
+rules of an fsdp config), a dispatch group spans every rank's rows, as the
+JAX package's one group spans the agent's whole batch: the capacity is
+that of the group's tokens, and each rank takes each expert's
+assignments on the ranks ahead of it from their counts (one small
+all-gather of the routing, not of the tokens), so an assignment drops
+where it drops in one process.  The aux losses' means run over every
+rank's rows (one f32 all-reduce).
+
 Aux losses: load balance (Switch-style) and router z-loss, returned for
 the trainer to add.
 """
@@ -53,6 +62,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import comm
+from repro_torch.distributed import sharding as SH
 from repro_torch.models import layers as L
 
 
@@ -97,10 +107,14 @@ def _expert_counts(e: torch.Tensor, E: int) -> torch.Tensor:
         0, e, torch.ones_like(e))
 
 
-def _dispatch_one(xt, top_e, E: int, k: int, C: int):
+def _dispatch_one(xt, top_e, E: int, k: int, C: int, before=None):
     """Sort-based dispatch of one token group.  xt: (n, d); top_e: (n, k).
     Returns the (E, C, d) buffer, each assignment's buffer row ``dest``
-    (E*C where it dropped), ``keep`` and ``token_idx``, all (n*k,)."""
+    (E*C where it dropped), ``keep`` and ``token_idx``, all (n*k,).
+    ``before`` (E,): each expert's assignments of the group's tokens that
+    other ranks hold ahead of these (its rows split over the batch axes):
+    an assignment keeps its place in the group's order, ``before`` plus
+    its place here, and drops past C; it is written at its place here."""
     n, d = xt.shape
     dev = xt.device
     flat_e = top_e.reshape(-1)                             # (n*k,)
@@ -110,7 +124,8 @@ def _dispatch_one(xt, top_e, E: int, k: int, C: int):
     rank_sorted = torch.arange(n * k, device=dev) - starts[flat_e[order]]
     pos_in_e = torch.empty_like(rank_sorted).index_put_((order,),
                                                         rank_sorted)
-    keep = pos_in_e < C                                    # capacity drop
+    keep = pos_in_e < C if before is None else \
+        pos_in_e + before[flat_e] < C                      # capacity drop
     dest = torch.where(keep, flat_e * C + pos_in_e,
                        torch.full_like(pos_in_e, E * C))   # E*C: drop slot
     token_idx = torch.arange(n, device=dev).repeat_interleave(k)
@@ -141,17 +156,34 @@ def moe_mlp(params: dict, x: torch.Tensor, cfg: ModelConfig,
     N = B * S
     E, k = m.n_experts, m.top_k
     G = max(1, m.dispatch_groups)
+    split = SH.data_axes("batch")
     if min_capacity >= N:
-        G = 1      # no group can drop: the split changes nothing
-    if N % G:
-        raise ValueError(f"{N} tokens do not split into {G} dispatch groups")
+        G, split = 1, None  # no group can drop: the split changes nothing
+    D = 1 if split is None else split.size
+    if (N * D) % G:
+        raise ValueError(f"{N * D} tokens do not split into {G} dispatch "
+                         f"groups")
+    C = max(_capacity(N * D // G, m), min_capacity)
+    span = 1                           # ranks whose rows one group spans
+    if G % D == 0:
+        G //= D                        # this rank's rows: whole groups
+    elif D % G == 0:
+        span, G = D // G, 1
+    else:
+        raise ValueError(f"{G} dispatch groups over {D} ranks' rows")
     n = N // G
-    C = max(_capacity(n, m), min_capacity)
     xt = x.reshape(N, d)
 
     logits, probs, top_w, top_e = route(params, xt, cfg)
+    before = None
+    if span > 1:
+        # the routing, not the tokens: each expert's assignments on the
+        # ranks ahead of this one in its group
+        counts = comm.all_gather(_expert_counts(top_e.reshape(-1), E),
+                                 split.group)              # (D, E)
+        before = counts[split.rank - split.rank % span:split.rank].sum(0)
     parts = [_dispatch_one(xt[g * n:(g + 1) * n], top_e[g * n:(g + 1) * n],
-                           E, k, C) for g in range(G)]
+                           E, k, C, before) for g in range(G)]
     # one (E, G*C, d) buffer: each expert's rows of every group, so the
     # expert products are one batched matmul over E
     buf = parts[0][0] if G == 1 else torch.stack(
@@ -209,10 +241,24 @@ def moe_mlp(params: dict, x: torch.Tensor, cfg: ModelConfig,
 
     if not with_aux:
         return out, None
-    # ---- aux losses (f32)
-    me = probs.mean(dim=0)                                 # mean router prob
-    ce = _expert_counts(top_e.reshape(-1), E).float() / (N * k)
+    # ---- aux losses (f32), means over the agent's whole batch
+    sums, ranks = _over_batch(torch.cat([
+        probs.sum(dim=0), _expert_counts(top_e.reshape(-1), E).float(),
+        torch.square(torch.logsumexp(logits, dim=-1)).sum()[None]]))
+    me = sums[:E] / (N * ranks)                            # mean router prob
+    ce = sums[E:2 * E] / (N * ranks * k)
     load_balance = E * torch.sum(me * ce)
-    z_loss = torch.mean(torch.square(torch.logsumexp(logits, dim=-1)))
+    z_loss = sums[-1] / (N * ranks)
     aux = m.router_aux_weight * (load_balance + 0.001 * z_loss)
     return out, aux
+
+
+def _over_batch(t: torch.Tensor) -> Tuple[torch.Tensor, int]:
+    """(``t`` summed over the "batch" rule's data axes, in f32, and their
+    size), or (``t``, 1) where the rows are whole here.  Every rank then
+    holds the whole batch's loss; the backward passes each rank the
+    gradient of its own rows' terms."""
+    split = SH.data_axes("batch")
+    if split is None:
+        return t, 1
+    return comm.reduce_from_model(t, split.group), split.size

@@ -26,7 +26,11 @@ tensor-parallel on each rank's local shards: the residual stream
 mixer and the RG-LRU block split over the axis, MoE's experts over
 "expert", the embedding and the head over "vocab" (``forward`` then
 returns this rank's columns of the logits); the patch scatter writes the
-replicated stream.
+replicated stream.  Under an fsdp rule over data axes wider than 1 (the
+JAX ``build_rules`` of an fsdp config, ``serve_rules(...,
+weights_fsdp=True)``) each rank holds its block of every layer's fsdp
+leaves and ``_scan_blocks`` gathers a layer's whole (model-axis) shards at
+use (``layer_gather``); the rows of the batch are the rank's own.
 """
 from __future__ import annotations
 
@@ -191,11 +195,58 @@ def _remat_context(remat) -> Optional[functools.partial]:
     return functools.partial(create_selective_checkpoint_contexts, policy)
 
 
-def _scan_blocks(stacked, fn, x, remat):
-    """Apply ``fn(layer_params, x) -> (x, aux)`` over the layer stack."""
+@functools.lru_cache(maxsize=16)
+def _whole_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
+    """Every parameter leaf's whole shape (no agent dim), by path: a
+    ``meta`` init."""
+    return {k: tuple(v.shape) for k, v in SH.flatten_with_paths(
+        init_params(torch.Generator(), cfg, (), "meta")).items()}
+
+
+def layer_gather(cfg: ModelConfig, stack: str):
+    """Under an active fsdp rule that splits leaves of the layer stack
+    ``params[stack]`` over data axes wider than 1: ``gather(layer_params,
+    prefix="")``, which returns one layer's tree (its leaves at
+    ``prefix`` + their path inside the layer) with each such leaf
+    gathered over those axes (``comm.gather_from_data``).  The gathered
+    leaf is this rank's model-axis shard, which the tensor-parallel code
+    takes as it is.  Else None.  Every fsdp-split leaf lies in a layer
+    stack (``sharding.fsdp_dims``)."""
+    fs = SH.data_axes("fsdp")
+    if fs is None:
+        return None
+    head = stack + "/"
+    dims = {k[len(head):]: d for k, d in SH.fsdp_dims(
+        _whole_shapes(cfg), SH.current_rules(),
+        SH.mesh_axis_sizes(SH.current_mesh())).items()
+        if k.startswith(head)}
+    if not dims:
+        return None
+
+    def gather(bp, prefix: str = ""):
+        flat = SH.flatten_with_paths(bp)
+        for k, t in flat.items():
+            d = dims.get(prefix + k)
+            if d is not None:
+                flat[k] = comm.gather_from_data(t, d, fs.group)
+        return SH.unflatten_with_paths(flat)
+    return gather
+
+
+def _scan_blocks(stacked, fn, x, remat, gather=None):
+    """Apply ``fn(layer_params, x) -> (x, aux)`` over the layer stack;
+    with ``gather`` (``layer_gather``'s) each layer's fsdp leaves are
+    gathered inside the checkpointed unit, so the backward's recompute
+    gathers them again and one layer's whole weights are live at a
+    time."""
     flat, treedef = TR.flatten(stacked)
     layers = [t.unbind(0) for t in flat]
     ctx = _remat_context(remat) if remat else None
+    if gather is not None:
+        inner = fn
+
+        def fn(bp, h):
+            return inner(gather(bp), h)
     fn = SH.bound(fn) if remat else fn
     aux = 0.0
     for i in range(flat[0].shape[0]):
@@ -248,16 +299,20 @@ def forward_features(params: Params, batch: Dict[str, torch.Tensor],
     elif cfg.family == "hybrid":
         x, _ = _scan_blocks(
             params["groups"],
-            lambda bp, h: _hybrid_group(bp, h, positions, cfg), x, remat)
+            lambda bp, h: _hybrid_group(bp, h, positions, cfg), x, remat,
+            layer_gather(cfg, "groups"))
         if "tail_blocks" in params:
             x, _ = _scan_blocks(
                 params["tail_blocks"],
                 lambda bp, h: (_hybrid_sub(bp, h, positions, cfg, "rec"),
-                               0.0), x, remat)
+                               0.0), x, remat,
+                layer_gather(cfg, "tail_blocks"))
     else:
         if "dense_blocks" in params:
-            x, aux = _scan_blocks(params["dense_blocks"], block, x, remat)
-        x, a = _scan_blocks(params["blocks"], block, x, remat)
+            x, aux = _scan_blocks(params["dense_blocks"], block, x, remat,
+                                  layer_gather(cfg, "dense_blocks"))
+        x, a = _scan_blocks(params["blocks"], block, x, remat,
+                            layer_gather(cfg, "blocks"))
         aux = aux + a
     x = L.grad_dtype_barrier(x)          # keep backward in compute dtype
     x = L.rmsnorm(params["ln_f"], x, cfg.norm_eps)
@@ -302,7 +357,7 @@ def encode(params: Params, frames: torch.Tensor, cfg: ModelConfig,
     x, _ = _scan_blocks(
         params["enc_blocks"],
         lambda bp, h: _dense_block(bp, h, positions, cfg, 0, causal=False),
-        x, remat)
+        x, remat, layer_gather(cfg, "enc_blocks"))
     return L.rmsnorm(params["enc_ln_f"], x, cfg.norm_eps)
 
 
@@ -315,7 +370,8 @@ def _decoder_forward(params, x, enc, positions, cfg: ModelConfig, remat):
         hh = L.rmsnorm(bp["ln2"], h, cfg.norm_eps)
         return h + L.mlp(bp["mlp"], hh, cfg.activation, cfg.d_ff), 0.0
 
-    return _scan_blocks(params["blocks"], dec_block, x, remat)
+    return _scan_blocks(params["blocks"], dec_block, x, remat,
+                        layer_gather(cfg, "blocks"))
 
 
 def cross_kv(p, enc):

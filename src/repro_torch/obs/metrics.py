@@ -15,7 +15,7 @@ import logging
 import os
 import threading
 from typing import (Any, Dict, Iterable, List, Optional, Protocol, Sequence,
-                    runtime_checkable)
+                    Tuple, runtime_checkable)
 
 import numpy as np
 import torch
@@ -141,15 +141,42 @@ def tree_sq_sum(tree: Tree,
                 counted: Optional[Sequence[bool]] = None) -> torch.Tensor:
     """Sum of squares over every leaf (float32 accumulation); with
     ``counted`` (per leaf, in ``tree.leaves`` order) only over the leaves
-    flagged True: a tensor-parallel rank counts a leaf replicated over
-    the model axis only once (on model rank 0), so the sum over every
-    rank counts each element once."""
+    flagged True: a rank holding its shards on a mesh counts a leaf only
+    where its coordinate is 0 on every non-agent axis over which the leaf
+    is replicated, so the sum over every rank counts each element once."""
     leaves = T.leaves(tree)
     if counted is not None:
         leaves = [l for l, c in zip(leaves, counted) if c]
     if not leaves:
         return torch.zeros((), dtype=torch.float32)
-    return sum(torch.sum(torch.square(l.float())) for l in leaves)
+    return sum(sq_sum(l) for l in leaves)
+
+
+#: Elements of a leaf (of each agent's columns where the agent dim is kept)
+#: that the norms square, the clip scales and the uniform mix averages at a
+#: time: their f32 temporaries stay at 256 MiB an agent however large the
+#: leaf, where the tied 256,000 x 4,096 embedding of two agents would take
+#: 7.8 GiB a temporary beside the whole train state.  A leaf no larger is
+#: done in one piece, so its value is the unsplit expression's.
+CHUNK = 1 << 26
+
+
+def col_slices(n: int) -> List[Tuple[int, int]]:
+    """The ranges [i, j) of at most CHUNK that cover ``range(n)``."""
+    if n <= CHUNK:
+        return [(0, n)]
+    return [(i, min(n, i + CHUNK)) for i in range(0, n, CHUNK)]
+
+
+def chunks(x: torch.Tensor) -> List[torch.Tensor]:
+    """``x`` flattened, in slices of at most CHUNK elements (views)."""
+    flat = x.reshape(-1)
+    return [flat[i:j] for i, j in col_slices(flat.numel())]
+
+
+def sq_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum of the squares of ``x``'s elements in f32, slice by slice."""
+    return sum(torch.sum(torch.square(c.float())) for c in chunks(x))
 
 
 def global_norm(tree: Tree) -> torch.Tensor:
@@ -158,16 +185,17 @@ def global_norm(tree: Tree) -> torch.Tensor:
 
 
 def consensus_error(tree: Tree, group=None,
-                    counted: Optional[Sequence[bool]] = None,
-                    model_group=None) -> torch.Tensor:
+                    counted: Optional[Sequence[bool]] = None
+                    ) -> torch.Tensor:
     """RMS per-agent disagreement sqrt(1/A sum_i ||x_i - x̄||^2), the norm
     taken over all leaves jointly.  Leaves carry a leading agent dim A.
     It is the Lyapunov quantity of Thm 2.1 and is 0 exactly at consensus.
     With a process ``group`` (``distributed.comm``) the leaves hold this
     rank's slice of the agents, and the mean and the sum span every
-    rank's.  Tensor-parallel, the leaves are this rank's shards: only the
-    leaves flagged in ``counted`` add to the sum, which is then summed
-    over ``model_group`` too."""
+    rank's.  On a mesh whose non-agent axes split the leaves (``counted``
+    given), the leaves are this rank's shards: only the leaves flagged in
+    ``counted`` add to the sum, which then spans the agents' group and
+    every non-agent axis, that is the whole mesh (the default group)."""
     leaves = T.leaves(tree)
     if not leaves:
         return torch.zeros((), dtype=torch.float32)
@@ -178,20 +206,26 @@ def consensus_error(tree: Tree, group=None,
     if counted is not None:
         leaves = [l for l, c in zip(leaves, counted) if c]
     for l in leaves:
-        v = l.float()
-        if group is None:
-            mean = torch.mean(v, dim=0, keepdim=True)
-        else:
-            mean = comm.all_reduce_sum(torch.sum(v, dim=0, keepdim=True),
-                                       group) / A_all
-        per_agent = per_agent + torch.sum(
-            torch.square(v - mean).reshape(A, -1), dim=1)
-    if group is None and model_group is None:
+        # in column slices of at most CHUNK elements an agent (the mean
+        # over agents is per column), one all-reduce a leaf with a group
+        x = l.reshape(A, -1)
+        cols = col_slices(x.shape[1])
+        if group is not None:
+            col_sum = torch.empty((1, x.shape[1]), dtype=torch.float32,
+                                  device=l.device)
+            for i, j in cols:
+                col_sum[:, i:j] = torch.sum(x[:, i:j].float(), dim=0,
+                                            keepdim=True)
+            mean = comm.all_reduce_sum(col_sum, group) / A_all
+        for i, j in cols:
+            v = x[:, i:j].float()
+            m = (torch.mean(v, dim=0, keepdim=True) if group is None
+                 else mean[:, i:j])
+            per_agent = per_agent + torch.sum(torch.square(v - m), dim=1)
+    if group is None and counted is None:
         return torch.sqrt(torch.mean(per_agent))
-    total = per_agent.sum()
-    for g in (group, model_group):
-        if g is not None:
-            total = comm.all_reduce_sum(total, g)
+    total = comm.all_reduce_sum(per_agent.sum(),
+                                None if counted is not None else group)
     return torch.sqrt(total / A_all)
 
 

@@ -9,10 +9,12 @@ and ``generate()`` is a blocking wrapper over its ``submit``/``poll``
 lifecycle.
 
 Under ``use_rules(serve_rules(...), mesh)`` with a "model" axis wider
-than 1, the two units run tensor-parallel (every family but the SSM and
-hybrid ones) on each rank's
+than 1, the two units run tensor-parallel (every family) on each rank's
 local shards (parameters under ``param_specs``, the cache under
-``cache_specs``, the batch's rows under ``batch_specs_serve``):
+``cache_specs``, the batch's rows under ``batch_specs_serve``); under
+``serve_rules(..., weights_fsdp=True)`` each layer's fsdp leaves are split
+over the data axes too, and prefill and decode gather them at use
+(``transformer.layer_gather``):
 ``make_prefill`` returns this rank's vocab columns of the last logits,
 ``make_serve_step`` the greedy tokens over every rank's columns.
 ``Engine`` and its scheduler are one-process, as in the JAX package.

@@ -5,7 +5,9 @@ With a vocab-split head (tensor-parallel over the "model" axis) the
 chunked cross-entropy takes the log-sum-exp from an all-reduced max and
 sum of exponentials, the target logit from the rank whose columns hold
 it, and accuracy's argmax over every rank's columns (the lowest global
-index among ties, as ``jnp.argmax``)."""
+index among ties, as ``jnp.argmax``).  With the agent's rows split over
+the "batch" rule's data axes, the loss and accuracy are ratios of sums
+over every rank's rows, as over the whole batch in one process."""
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
@@ -17,6 +19,7 @@ from repro_torch import tree as TR
 from repro_torch.distributed import comm
 from repro_torch.distributed import sharding as SH
 from repro_torch.models import layers as L
+from repro_torch.obs import metrics as obs_metrics
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
@@ -77,7 +80,7 @@ def chunked_cross_entropy(x, head_w, labels, n_chunks: int = 8,
 
     x: (B,S,d); head_w: (d,V); labels: (B,S) int (negatives masked).
     Returns (loss, metrics) like ``cross_entropy``.  ``n_chunks`` is halved
-    until it divides B*S.  ``vocab``: the full vocabulary, which tells this
+    until it divides B*S (this rank's rows under the "batch" rule).  ``vocab``: the full vocabulary, which tells this
     rank's columns of a vocab-split head from a whole one (None: whole)."""
     B, S, d = x.shape
     N = B * S
@@ -98,6 +101,13 @@ def chunked_cross_entropy(x, head_w, labels, n_chunks: int = 8,
             ce, m, c = checkpoint(_ce_chunk, xr[i], head_w, lr[i], softcap,
                                   use_reentrant=False)
         ce_sum, mask_sum, corr = ce_sum + ce, mask_sum + m, corr + c
+    rows = SH.data_axes("batch")
+    if rows is not None:
+        # the agent's rows split over the batch axes: the ratio of the
+        # sums over all of them; the backward passes each rank the
+        # gradient of its own rows' terms
+        ce_sum, mask_sum, corr = comm.reduce_from_model(
+            torch.stack([ce_sum, mask_sum, corr]), rows.group).unbind(0)
     denom = torch.clamp(mask_sum, min=1.0)
     loss = ce_sum / denom
     return loss, {"ce": loss, "accuracy": corr / denom}
@@ -106,8 +116,7 @@ def chunked_cross_entropy(x, head_w, labels, n_chunks: int = 8,
 def global_norm(tree) -> torch.Tensor:
     """L2 norm over every leaf: squares summed in f32, leaf sums added in
     sorted-leaf order (``jax.tree.leaves``'s order for dicts)."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for x in TR.leaves(tree)))
+    return torch.sqrt(sum(obs_metrics.sq_sum(x) for x in TR.leaves(tree)))
 
 
 def clip_by_global_norm(tree, max_norm: float, norm=None):
@@ -119,4 +128,12 @@ def clip_by_global_norm(tree, max_norm: float, norm=None):
     if norm is None:
         norm = global_norm(tree)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
-    return TR.tree_map(lambda x: (x.float() * scale).to(x.dtype), tree), norm
+
+    def scaled(x):
+        out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+        # elementwise, so slice by slice (obs.metrics.chunks) is the same
+        for o, c in zip(obs_metrics.chunks(out), obs_metrics.chunks(x)):
+            o.copy_(c.float() * scale)
+        return out
+
+    return TR.tree_map(scaled, tree), norm

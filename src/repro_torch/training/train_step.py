@@ -23,16 +23,21 @@ hierarchical schedule's Kronecker factors included, through
 ``general_mix``), and the metrics.  The result is the one-process stacked
 run's to f32 rounding (bit for bit at one rank).
 
-**Tensor-parallel.**  Built under ``use_rules(build_rules(...), mesh)``
-with a mesh whose "model" axis is wider than 1 (the dense, vision, MoE
-and audio families; not the SSM or hybrid ones),
-every rank holds its local shard of each leaf of the state under
-``train_state_specs`` (``repro_torch.convert`` cuts them) and the batch of
-its agents; the agents go over the rules' agent axes (the "data" group,
-the path above), the model runs split over the "model" axis.  A leaf
-replicated over that axis is counted once (on model rank 0) in the clip's
-norm and in the metrics, whose sums then span the whole mesh.  The FrODO
-update runs on the local shards, in place.
+**On a mesh.**  Built under ``use_rules(build_rules(...), mesh)`` with a
+mesh whose axes that carry no agents are not all 1 wide (a "model" axis
+wider than 1, or data axes of the batch and fsdp rules: the five fsdp
+configs, whose agents go over "pod" or are one), every rank holds its
+local shard of each leaf of the state under ``train_state_specs``
+(``repro_torch.convert`` cuts them) and its rows of its agents' batch
+under ``batch_specs`` (the rows divisible by the batch axes).  The agents
+go over the rules' agent axes, the model runs split over the "model"
+axis, and each layer's fsdp leaves are gathered over the data axes at use
+(their gradients reduce-scattered back).  The loss is the ratio of sums
+over every rank's rows; the gradients of the leaves not split over the
+batch axes are summed over them in f32, once a step.  A leaf is counted
+once in the clip's norm and in the metrics (where this rank's coordinate
+is 0 on every non-agent axis that replicates it), whose sums then span
+the whole mesh.  The FrODO update runs on the local shards, in place.
 
 The sharding-spec functions (``build_rules``, ``param_specs``,
 ``train_state_specs``, ...) give the JAX package's specs for the same
@@ -356,35 +361,109 @@ def _tp_global_norm(tree: Any, counted) -> torch.Tensor:
         obs_metrics.tree_sq_sum(tree, counted), None))
 
 
-def model_counted(cfg: ModelConfig, n_agents: int, rules: Dict[str, Any],
-                  mesh, model_rank: int) -> list:
-    """Per param leaf (``tree.leaves`` order): whether this rank counts it
-    in a sum over the mesh: a leaf split over "model", or any leaf on
-    model rank 0."""
+def _non_agent_axes(rules: Dict[str, Any], mesh) -> Tuple[str, ...]:
+    agents = set(SH.axes_of(rules.get("agent")))
+    return tuple(a for a in mesh.mesh_dim_names if a not in agents)
+
+
+def _leaf_axes(cfg: ModelConfig, n_agents: int, rules: Dict[str, Any],
+               mesh) -> list:
+    """Per param leaf (``tree.leaves`` order): the mesh axes that split
+    it under ``param_specs``."""
     shapes = T.init_params(torch.Generator(), cfg, (n_agents,), "meta")
     specs = param_specs(shapes, rules, mesh, agent_stacked=True)
-    return [model_rank == 0 or any("model" in SH.axes_of(p) for p in spec)
+    return [{a for p in spec for a in SH.axes_of(p)}
             for spec in TR.leaves(specs)]
 
 
-def _tp_layout(cfg: ModelConfig, n_agents: int, group):
-    """(the model axis, the agents' group, the counted flags) under the
-    active rules and mesh, or (None, group, None) with no model axis."""
-    tp = SH.model_axis()
-    if tp is None:
-        return None, group, None
+def model_counted(cfg: ModelConfig, n_agents: int, rules: Dict[str, Any],
+                  mesh) -> list:
+    """Per param leaf (``tree.leaves`` order): whether this rank counts it
+    in a sum over the mesh: where its coordinate is 0 on every non-agent
+    axis over which the leaf is replicated (the model axis, and the data
+    axes of the batch and fsdp rules)."""
+    coords = SH.mesh_coords(mesh)
+    others = _non_agent_axes(rules, mesh)
+    return [all(coords[a] == 0 for a in others if a not in used)
+            for used in _leaf_axes(cfg, n_agents, rules, mesh)]
+
+
+def batch_summed(cfg: ModelConfig, n_agents: int, rules: Dict[str, Any],
+                 mesh) -> list:
+    """Per param leaf: whether its gradient is summed over the "batch"
+    rule's axes after the backward: every leaf not split over them (an
+    fsdp-split leaf gets that sum from its gather's reduce-scatter)."""
+    rows = set(SH.axes_of(rules.get("batch")))
+    return [not rows & used
+            for used in _leaf_axes(cfg, n_agents, rules, mesh)]
+
+
+class Layout(NamedTuple):
+    """Where a step's rank sits on the active mesh."""
+    sharded: bool        # some non-agent axis is wider than 1
+    group: Any           # the agents' group (None: every agent here)
+    counted: Optional[list]              # ``model_counted``'s flags
+    rows: Optional[SH.DataAxes]          # the batch rule's axes
+    summed: Optional[list]               # ``batch_summed``'s flags
+
+
+def _layout(cfg: ModelConfig, n_agents: int, group) -> Layout:
+    """The step's layout under the active rules and mesh: sharded
+    whenever an axis that does not carry agents is wider than 1 (the
+    model axis, or the data axes of the batch and fsdp rules), with the
+    agents' group from the rules' agent axes unless ``group`` is given;
+    else the agent-sharded or one-process layout around ``group``."""
     mesh, rules = SH.current_mesh(), SH.current_rules()
+    if mesh is None or rules is None:
+        return Layout(False, group, None, None, None)
     sizes = SH.mesh_axis_sizes(mesh)
-    for key in ("batch", "fsdp"):
-        if any(sizes[a] > 1 for a in SH.axes_of(rules.get(key))):
-            raise NotImplementedError(
-                f"{cfg.arch_id}: the {key!r} rule over {rules[key]} with a "
-                f"model axis: the batch and fsdp rules wait for ROADMAP "
-                f"queue 1 item 5.1.7; tensor-parallel training takes the "
-                f"agents over the data axes")
+    if all(sizes[a] == 1 for a in _non_agent_axes(rules, mesh)):
+        return Layout(False, group, None, None, None)
     if group is None and SH.axes_of(rules.get("agent")):
         group = SH.axes_group(mesh, SH.axes_of(rules["agent"]))
-    return tp, group, model_counted(cfg, n_agents, rules, mesh, tp.rank)
+    rows = SH.data_axes("batch")
+    return Layout(True, group, model_counted(cfg, n_agents, rules, mesh),
+                  rows,
+                  None if rows is None else
+                  batch_summed(cfg, n_agents, rules, mesh))
+
+
+#: the f32 bytes of one all-reduce of ``_sum_over_rows`` (a larger leaf
+#: goes alone)
+ROWS_BUCKET_BYTES = 1 << 28
+
+
+def _sum_over_rows(grads: list, summed: list, rows: SH.DataAxes) -> list:
+    """Each flagged gradient summed over the batch axes in f32, rounded
+    once to its dtype; the small ones packed into all-reduces of up to
+    ``ROWS_BUCKET_BYTES``."""
+    out = list(grads)
+    bucket, size = [], 0
+
+    def flush():
+        if bucket:
+            # a leaf alone is summed in its f32 copy (or in place: it is
+            # replaced by the sum)
+            parts = [grads[i].reshape(-1).float() for i in bucket]
+            flat = comm.all_reduce_sum(
+                parts[0] if len(parts) == 1 else torch.cat(parts),
+                rows.group)
+            for i, part in zip(bucket, flat.split(
+                    [grads[i].numel() for i in bucket])):
+                out[i] = part.reshape(grads[i].shape).to(grads[i].dtype)
+            bucket.clear()
+
+    for i, flag in enumerate(summed):
+        if not flag:
+            continue
+        n = grads[i].numel() * 4
+        if size + n > ROWS_BUCKET_BYTES:
+            flush()
+            size = 0
+        bucket.append(i)
+        size += n
+    flush()
+    return out
 
 
 def make_train_step(cfg: ModelConfig, tc: TrainConfig, n_agents: int,
@@ -394,14 +473,16 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, n_agents: int,
     (= n_agents) agents, or with a process ``group`` (``distributed.comm``)
     this rank's A / world of them, as its state does.  The optimizer state
     is advanced in place: the state passed in is consumed.  Built under
-    ``use_rules(rules, mesh)`` with a model axis wider than 1, the step is
-    tensor-parallel (module docstring); its agents' group is then the
-    rules' agent axes unless ``group`` is given."""
-    tp, group, counted = _tp_layout(cfg, n_agents, group)
+    ``use_rules(rules, mesh)`` with an axis that carries no agents wider
+    than 1 (the model axis, the data axes of the batch and fsdp rules),
+    the step runs on this rank's shards and rows (module docstring); its
+    agents' group is then the rules' agent axes unless ``group`` is
+    given."""
+    lay = _layout(cfg, n_agents, group)
+    group, counted = lay.group, lay.counted
     opt = build_optimizer(tc, counted)
     W, W_intra, W_pod = build_mixing(tc, n_agents, n_pods)
     loss_fn = make_loss_fn(cfg, tc)
-    model_group = None if tp is None else tp.group
     A_loc, lo = n_agents, 0
     if group is not None:
         world = comm.world_size(group)
@@ -437,7 +518,8 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, n_agents: int,
 
     def agent_grads(flat, treedef, batch):
         """Per-agent (loss, metrics), grads — microbatched grad accumulation
-        in f32 when tc.microbatches > 1."""
+        in f32 when tc.microbatches > 1 (each microbatch a slice of this
+        rank's rows)."""
         M = tc.microbatches
         if M <= 1:
             return _agent_grads(loss_fn, flat, treedef, batch, A_loc)
@@ -491,12 +573,14 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, n_agents: int,
         dev = flat[0].device
         batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
         loss, metrics, g = agent_grads(flat, treedef, batch)
+        if lay.summed is not None:
+            g = _sum_over_rows(g, lay.summed, lay.rows)
         grads = TR.unflatten(treedef, g)
         del g
 
         if tc.grad_clip > 0:
-            norm = (_global_norm(grads, group) if tp is None
-                    else _tp_global_norm(grads, counted))
+            norm = (_tp_global_norm(grads, counted) if lay.sharded
+                    else _global_norm(grads, group))
             grads, gnorm = clip_by_global_norm(
                 grads, float(tc.grad_clip * np.sqrt(n_agents)), norm=norm)
         else:
@@ -531,24 +615,23 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, n_agents: int,
             # rank's agents
             if isinstance(opt_state, dict):
                 for k, v in opt_state.get("metrics", {}).items():
-                    if tp is not None:       # every rank's counted leaves
+                    if lay.sharded:          # every rank's counted leaves
                         v = torch.sqrt(comm.all_reduce_sum(v * v, None))
                     elif group is not None:
                         v = torch.sqrt(comm.all_reduce_sum(v * v, group))
                     out_metrics.setdefault(k, v)
             out_metrics["consensus_error_pre_mix"] = \
-                obs_metrics.consensus_error(params, group, counted,
-                                            model_group)
+                obs_metrics.consensus_error(params, group, counted)
 
         if n_agents > 1 and state.step % tc.consensus_interval == 0:
             params = mix(params, state.step, dev)
 
         if tc.collect_metrics:
             out_metrics["consensus_error"] = obs_metrics.consensus_error(
-                params, group, counted, model_group)
+                params, group, counted)
             out_metrics["param_norm"] = (
-                _global_norm(params, group) if tp is None
-                else _tp_global_norm(params, counted))
+                _tp_global_norm(params, counted) if lay.sharded
+                else _global_norm(params, group))
             if faults is not None:
                 t = state.step % faults.n_steps
                 out_metrics.update({k: v[t]

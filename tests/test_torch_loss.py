@@ -104,3 +104,37 @@ def test_bf16_times_f32_scalar_would_round_the_scale():
     x = torch.tensor([1.0, 3.0], dtype=torch.bfloat16)
     assert (x * torch.tensor(0.3)).dtype == torch.bfloat16
     assert (x.float() * torch.tensor(0.3)).dtype == torch.float32
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_leaves_larger_than_a_slice_match_jax(dtype, monkeypatch):
+    """Leaves larger than ``obs.metrics.CHUNK`` (set to 7 elements here) go
+    slice by slice through the norm, the clip, the consensus error and the
+    uniform mix: the clip (bf16) and the mix bit-equal to JAX's, the norm
+    and the consensus error at rtol 1e-6."""
+    import ml_dtypes
+    from repro.core import consensus as JC
+    from repro.obs import metrics as JM
+    from repro_torch.core import consensus as C
+    from repro_torch.obs import metrics as M
+
+    monkeypatch.setattr(M, "CHUNK", 7)
+    np_dtype = ml_dtypes.bfloat16 if dtype == "bfloat16" else np.float32
+    r = np.random.default_rng(3)
+    tree = {"a": r.normal(size=(2, 5, 9)).astype(np_dtype),
+            "b": r.normal(size=(2, 3)).astype(np_dtype)}
+    mine = {k: tensor_from_numpy(v, "cpu") for k, v in tree.items()}
+    jtree = {k: jnp.asarray(v) for k, v in tree.items()}
+    clipped, norm = L.clip_by_global_norm(mine, 1.0)
+    ref, jnorm = JL.clip_by_global_norm(jtree, 1.0)
+    np.testing.assert_allclose(float(norm), float(jnorm), rtol=1e-6)
+    np.testing.assert_allclose(float(M.consensus_error(mine)),
+                               float(JM.consensus_error(jtree)), rtol=1e-6)
+    mixed = C.mix_stacked(mine, np.full((2, 2), 0.5))
+    jmixed = JC.mix_stacked(jtree, np.full((2, 2), 0.5))
+    for k in tree:
+        np.testing.assert_allclose(
+            clipped[k].float().numpy(), np.asarray(ref[k], np.float32),
+            rtol=0 if dtype == "bfloat16" else 1e-6, atol=0)
+        np.testing.assert_array_equal(mixed[k].float().numpy(),
+                                      np.asarray(jmixed[k], np.float32))

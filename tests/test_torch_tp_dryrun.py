@@ -12,8 +12,9 @@ roofline's link term.
   ``extrapolated.collective_*``; ``analytic``), its depth extrapolation
   equals the full-depth count, and the roofline's link term is its
   effective bytes over NVLink's rate; a train record under the fsdp rule
-  (recurrentgemma-9b's ``train_4k``) holds ``collectives: null`` with a
-  reason naming ROADMAP 5.1.7 and no link term.  One production record of
+  (recurrentgemma-9b's ``train_4k``) carries collectives (the layers'
+  all-gathers over "data", their reduce-scatters, the all-reduces) whose
+  extrapolation equals the full-depth count, and a link term.  One production record of
   each of the six families since the dense one (``FAMILY_RECORDS``)
   carries collectives whose extrapolation from 2 and 3 layers equals the
   full-depth count (whisper's from 2 and 3 layers of each of its two
@@ -60,7 +61,8 @@ FAMILY_RECORDS = {"phi-3-vision-4.2b": "train_4k",
                   "qwen3-moe-30b-a3b": "prefill_32k",
                   "whisper-tiny": "prefill_32k", "mamba2-780m": "train_4k",
                   "recurrentgemma-9b": "decode_32k"}
-#: a record that keeps ``collectives: null``: training under the fsdp rule
+#: a train record under the fsdp rule: its collectives include the
+#: layers' gathers over "data" and their gradients' reduce-scatters
 NULL_RECORD = ("recurrentgemma-9b", "train_4k")
 
 
@@ -180,15 +182,21 @@ def test_records_carry_the_jax_keys_and_the_link_term(records):
         / 450e9 > 0
     assert RF.CHIPS["16x16"] == 256 and RF.CHIPS["2x16x16"] == 512
     m = recs[NULL_RECORD]
-    assert m["collectives"] is None and "5.1.7" in m["collectives_reason"]
+    mc = m["collectives"]
+    assert "collectives_reason" not in m
+    assert min(mc["counts"][k] for k in ("all-gather", "reduce-scatter",
+                                         "all-reduce")) > 0
+    assert m["extrapolated"]["collective_bytes_by_kind"] == \
+        mc["bytes_by_kind"]
     tm = RF.roofline_terms(m)
-    assert tm["t_link_s"] is None and tm["dominant"] != "link"
+    assert tm["t_link_s"] == m["extrapolated"][
+        "collective_effective_bytes_per_device"] / 450e9 > 0
     text = RF.report(RF.load_records(out))
     assert text.startswith("Card: NVIDIA H100 80GB HBM3, 700.00 W")
     assert "NVLink" in text
     row = [l for l in text.splitlines()
            if l.startswith("| %s | %s | 16x16" % NULL_RECORD)]
-    assert len(row) == 1 and "| n/a |" in row[0]
+    assert len(row) == 1 and "| n/a |" not in row[0]
     assert np.isfinite(t["step_time_bound_s"])
 
 

@@ -19,8 +19,9 @@ counts replicated leaves on every model rank (the planted fault) misses.
 On a (4, 1) mesh (model axis 1) the step is bit-equal to the agent-sharded
 step without rules.  A backward run in another thread than the forward
 (as autograd runs it on a CUDA device) recomputes the remat layers under
-the forward's rules.  recurrentgemma-9b (fsdp=True) raises on the (2, 2)
-mesh: its batch and fsdp rules span the data axis (ROADMAP 5.1.7).
+the forward's rules.  recurrentgemma-9b (fsdp=True) trains on the (2, 2)
+mesh, where its batch and fsdp rules span the data axis: its first loss
+is the one-process loss.
 The JAX subprocess and the ranks run at the same time.
 """
 import json
@@ -257,6 +258,35 @@ def backward_in_another_thread(d, mesh):
             and all(torch.equal(a, b) for a, b in zip(*grads)))
 
 
+def fsdp_inputs():
+    """recurrentgemma-9b's (fsdp=True) f32 smoke config, one agent's
+    parameters and a batch of 2 rows of 8 tokens."""
+    cfg = REG.get_smoke_config("recurrentgemma-9b").replace(
+        param_dtype="float32", compute_dtype="float32")
+    params = T.init_params(torch.Generator().manual_seed(4), cfg, (1,))
+    toks = np.random.default_rng(4).integers(0, 512, size=(1, 2, 9))
+    return cfg, params, {"tokens": toks[..., :-1], "labels": toks[..., 1:]}
+
+
+def fsdp_first_loss(mesh):
+    """The first step's loss of recurrentgemma-9b on a (2, 2) mesh, whose
+    batch and fsdp rules span the data axis: each rank on its shards and
+    its row."""
+    cfg, params, batch = fsdp_inputs()
+    tc = TS.TrainConfig(memory_mode="expsum", K=4)
+    full = TS.train_state_from_params(params, tc)
+    rules = TS.build_rules(cfg, False)
+    specs = TS.train_state_specs(full, cfg, rules, mesh)
+    state = TS.TrainState(
+        CV.shard_tree(full.params, specs.params, mesh, "cpu"),
+        CV.shard_tree(full.opt_state, specs.opt_state, mesh, "cpu"), 0)
+    b = CV.shard_tree(batch, TS.batch_specs(batch, rules, mesh), mesh, "cpu")
+    with SH.use_rules(rules, mesh):
+        step = TS.make_train_step(cfg, tc, TS.n_agents_for(cfg, mesh, False))
+        _, m = step(state, b)
+    return float(m["loss"])
+
+
 def _rank_train(rank, world, d):
     from repro_torch.launch import mesh as ML
 
@@ -268,20 +298,13 @@ def _rank_train(rank, world, d):
                                                  meshes[2], True)
     bit_equal = run_model_axis_one(d)
     threaded = backward_in_another_thread(d, meshes[2])
-    raised = ""
-    hybrid = REG.get_smoke_config("recurrentgemma-9b")
-    with SH.use_rules(TS.build_rules(hybrid, False), meshes[2]):
-        try:
-            TS.make_train_step(hybrid, TS.TrainConfig(),
-                               TS.n_agents_for(hybrid, meshes[2], False))
-        except NotImplementedError as e:
-            raised = str(e)
+    fsdp_loss = fsdp_first_loss(meshes[2])
     if rank == 0:
         hists = {k: v[0] for k, v in res.items()}
         with open(os.path.join(d, "port.json"), "w") as f:
             json.dump({"hist": hists, "same": {k: v[2] for k, v in
                                                res.items()},
-                       "bit_equal": bit_equal, "raised": raised,
+                       "bit_equal": bit_equal, "fsdp_loss": fsdp_loss,
                        "threaded": threaded}, f)
         for k, v in res.items():
             np.savez(os.path.join(d, f"{k}.port.npz"), **v[1])
@@ -367,5 +390,10 @@ def test_model_axis_one_is_bit_equal_and_other_families_raise(runs):
     _, _, port = runs
     assert port["bit_equal"]
     assert port["threaded"], "a backward in autograd's own thread differs"
-    # the rule that still waits: fsdp (and batch) over a data axis of 2
-    assert "recurrentgemma-9b" in port["raised"] and "5.1.7" in port["raised"]
+    # fsdp (and batch) over a data axis of 2: the step builds and its
+    # first loss (before any update) is the one-process loss
+    cfg, params, batch = fsdp_inputs()
+    loss_fn = TS.make_loss_fn(cfg, TS.TrainConfig())
+    want, _ = loss_fn(TR.tree_map(lambda t: t[0], params),
+                      {k: torch.as_tensor(v[0]) for k, v in batch.items()})
+    np.testing.assert_allclose(port["fsdp_loss"], float(want), rtol=1e-5)

@@ -1,15 +1,17 @@
 """The port's tensor-parallel collectives a step beside the JAX package's,
 for the families that run over the "model" axis, at their smoke configs on
-a (data 1, model 2) mesh; and the dry-run's link term for one production
-record of each family.
+a (data 1, model 2) mesh, and for two fsdp configs' train steps on a
+(data 2, model 2) mesh (the batch and fsdp rules over "data"); and the
+dry-run's link term for one production record of each family and for the
+fsdp configs' train records.
 
     PYTHONPATH=src python tools/tp_collectives_vs_jax.py [--out FILE]
 
 The port's side is ``repro_torch.launch.dryrun.count_collectives`` on
-``meta`` tensors in a two-rank ``fake`` world (the calls and bytes each
-rank would issue).  The JAX side lowers and compiles the same unit with
-``repro.launch.dryrun.lower_train``/``lower_decode`` on two forced host
-CPU devices and reads the partitioned HLO's collectives
+``meta`` tensors in a two-rank (four-rank) ``fake`` world (the calls and
+bytes each rank would issue).  The JAX side lowers and compiles the same
+unit with ``repro.launch.dryrun.lower_train``/``lower_decode`` on two
+(four) forced host CPU devices and reads the partitioned HLO's collectives
 (``parse_collectives``), with the layer scan unrolled so that every
 layer's collectives appear.  It runs in a subprocess on the CPU.
 """
@@ -33,10 +35,15 @@ RECORDS = {"h2o-danube-1.8b": "train_4k", "phi-3-vision-4.2b": "train_4k",
            "minicpm3-4b": "train_4k", "qwen3-moe-30b-a3b": "prefill_32k",
            "whisper-tiny": "train_4k", "mamba2-780m": "train_4k",
            "recurrentgemma-9b": "prefill_32k"}
+#: fsdp configs whose smoke train step runs on (data 2, model 2)
+FSDP_ARCHS = ("qwen3-32b", "qwen3-moe-30b-a3b")
+#: the fsdp configs' production train records (16x16)
+FSDP_RECORDS = ("qwen3-32b", "nemotron-4-15b", "qwen3-moe-30b-a3b",
+                "recurrentgemma-9b", "kimi-k2-1t-a32b")
 
 JAX_SCRIPT = textwrap.dedent("""
     import json, os, sys
-    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=2"
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
     import numpy as np
     import jax
     from jax.sharding import Mesh
@@ -45,8 +52,10 @@ JAX_SCRIPT = textwrap.dedent("""
     from repro.launch import dryrun as DR
     from repro.training import train_step as TS
 
-    archs, units = json.loads(sys.argv[1]), json.loads(sys.argv[2])
+    archs, units, fsdp = map(json.loads, sys.argv[1:4])
     mesh = Mesh(np.array(jax.devices()[:2]).reshape(1, 2), ("data", "model"))
+    mesh4 = Mesh(np.array(jax.devices()[:4]).reshape(2, 2),
+                 ("data", "model"))
     out = {}
     for arch in archs:
         cfg = REG.get_smoke_config(arch).replace(unroll_scan=True)
@@ -59,6 +68,13 @@ JAX_SCRIPT = textwrap.dedent("""
                 low, _ = DR.lower_decode(cfg, shape, mesh, False)
             out[arch + "|" + name] = DR.parse_collectives(
                 low.compile().as_text())
+    for arch in fsdp:
+        cfg = REG.get_smoke_config(arch).replace(unroll_scan=True)
+        name, seq, batch, kind = units[0]
+        low, _ = DR.lower_train(cfg, InputShape(name, seq, batch, kind),
+                                mesh4, False, TS.TrainConfig())
+        out[arch + "|" + name + "|d2m2"] = DR.parse_collectives(
+            low.compile().as_text())
     print(json.dumps(out))
 """)
 
@@ -80,6 +96,13 @@ def port_counts() -> dict:
             for name, seq, batch, kind in UNITS:
                 out[f"{arch}|{name}"] = DR.count_collectives(
                     cfg, InputShape(name, seq, batch, kind), mesh, False, tc)
+    with ML.fake_world(4):
+        mesh = ML.make_host_mesh(2)
+        name, seq, batch, kind = UNITS[0]
+        for arch in FSDP_ARCHS:
+            out[f"{arch}|{name}|d2m2"] = DR.count_collectives(
+                REG.get_smoke_config(arch),
+                InputShape(name, seq, batch, kind), mesh, False, tc)
     return out
 
 
@@ -88,7 +111,8 @@ def jax_counts() -> dict:
                JAX_PLATFORMS="cpu")
     env.pop("XLA_FLAGS", None)
     res = subprocess.run([sys.executable, "-c", JAX_SCRIPT,
-                          json.dumps(ARCHS), json.dumps(UNITS)], env=env,
+                          json.dumps(ARCHS), json.dumps(UNITS),
+                          json.dumps(FSDP_ARCHS)], env=env,
                          capture_output=True, text=True, timeout=1800)
     if res.returncode:
         raise RuntimeError(res.stderr[-3000:])
@@ -100,7 +124,8 @@ def link_terms() -> dict:
     from repro_torch.launch import dryrun as DR
 
     out = {}
-    for arch, shape in RECORDS.items():
+    for arch, shape in (*RECORDS.items(),
+                        *((a, "train_4k") for a in FSDP_RECORDS)):
         rec = DR.run_mesh([arch], [shape], False)[0]
         t = RF.roofline_terms(rec)
         ext = rec["extrapolated"]
