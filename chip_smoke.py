@@ -162,8 +162,10 @@ Phases, each printing one JSON line:
     rank, each layer's fsdp leaves split over "data" and gathered at use):
     qwen3-32b at full width (2 of 64 layers, bf16, exp-sum K = 4 with bf16
     accumulators, seq 2048, a clip that binds, 2 steps), qwen3-moe-30b-a3b
-    (1 of 48 layers: 2 exp-sum steps, then 2 exact steps at T = 8) and
-    its layer 0's MoE forward (the aux loss over every rank's rows), then
+    (1 of 48 layers: 1 exp-sum step of 2 microbatches over 4 rows with
+    labels masked unequally and a capacity factor of 0.5, microbatch m on
+    the ranks the JAX step's m-th, then 2 exact steps at T = 8) and its
+    layer 0's MoE forward (the aux loss over every rank's rows), then
     qwen3-32b's f32 prefill (2 x 256) and 2 greedy decode steps under
     ``serve_rules(..., weights_fsdp=True)``; each against the one-process
     run of the same batch, made before the ranks start (losses rtol 1e-4,
@@ -174,7 +176,9 @@ Phases, each printing one JSON line:
     under 72 GB, the kernels' launches a rank); collectives a step by
     group ("data", "model"); replicated leaves counted on both data ranks
     in the clip (the norm those flags give over qwen3-32b's first
-    gradient), the batch sum skipped (one qwen3-moe step) and MoE's load
+    gradient), the batch sum skipped (the clip norm and the replicas of
+    qwen3-moe's first exact gradient before its sum), microbatches cut
+    from each rank's own rows (one microbatched step) and MoE's load
     balance over each rank's own means must fail;
 17. timing: CUDA-event medians of each kernel, its plain version and (exact)
    one library call, beside the memory bound; the Exp 2 ms/step;
@@ -207,6 +211,7 @@ import dataclasses
 import functools
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -2203,7 +2208,8 @@ def serve_models(dev, archs: tuple) -> dict:
 # ---------------------- the dry-run, the roofline and the experiments' CLIs
 #: the dry-run's probed pair: the llm_train run's model and shape (probed
 #: at global batch 4 with exp-sum K = 8 and f32 accumulators, the
-#: dry-run's default TrainConfig), and the depth of the llm_train run its
+#: dry-run's default TrainConfig, at 2 of its 8 microbatches: the rows an
+#: agent allow no more), and the depth of the llm_train run its
 #: extrapolation is printed beside
 DRYRUN_PROBE = ("h2o-danube-1.8b", "train_4k")
 #: the ablation arms' rounds on the card (the JAX script's K_MAX is 4000),
@@ -2289,6 +2295,7 @@ def dryrun_phase(dev, out: str, llm_main: dict) -> dict:
          meta_path_seconds=meta_s, probe_seconds=probe_s,
          probe={"arch": arch, "shape": shape, "n_agents": rec["n_agents"],
                 "global_batch": rec["probe"]["global_batch"],
+                "microbatches": rec["probe"]["microbatches"],
                 "reduced": rec["probe"]["reduced"], "K": 8,
                 "acc_dtype": "float32", "trip_counts": trips,
                 "launches": launches,
@@ -4264,20 +4271,28 @@ def tensor_parallel_phase(dev, ref_dir: str) -> dict:
 FSDP_ARCH = "qwen3-32b"
 FSDP = dict(mesh=(2, 2), n_layers=2, seq=2048, batch=2, K=4,
             acc_dtype="bfloat16", steps=2, planted_steps=1)
-#: qwen3-moe-30b-a3b at 1 layer: 2 exp-sum steps, then 2 exact steps; the
-#: batch sum skipped is planted in one step of it; the replicated leaves
-#: counted on both data ranks are read from qwen3-32b's first step (the
-#: clip norm those flags give over its gradient)
-FSDP_MOE = dict(n_layers=1, steps=2, exact_steps=2, exact_T=8)
-#: the train runs: (arch, depth, exact memory, steps)
+#: qwen3-moe-30b-a3b at 1 layer: 1 exp-sum step of 2 microbatches over 4
+#: rows (one a data rank in each microbatch; microbatch m is rows [2m, 2m
+#: + 2) of the agent's, as the JAX step groups them), the label positions
+#: ``masked`` of each row masked and the experts' capacity factor cut to
+#: ``capacity_factor`` (half the assignments drop: which drop, and each
+#: microbatch's count of labels, depend on its rows, so microbatches cut
+#: from each rank's own rows give another loss), then 2 exact steps of one
+#: microbatch (the second reads the first's history); the microbatch
+#: grouping is planted in one microbatched step
+FSDP_MOE = dict(n_layers=1, steps=1, microbatches=2,
+                masked=(0, 512, 1024, 1536), capacity_factor=0.5,
+                exact_steps=2, exact_T=8)
 #: the train runs, in order (the smaller model first: a fresh rank's first
 #: step also pays the card's and gloo's first-use costs): (arch, depth,
-#: exact memory, steps)
+#: exact memory, steps, microbatches); a run of M microbatches takes
+#: M x FSDP["batch"] rows
 FSDP_RUNS = {"moe": (MOE_ARCH, FSDP_MOE["n_layers"], False,
-                     FSDP_MOE["steps"]),
+                     FSDP_MOE["steps"], FSDP_MOE["microbatches"]),
              "moe_exact": (MOE_ARCH, FSDP_MOE["n_layers"], True,
-                           FSDP_MOE["exact_steps"]),
-             "dense": (FSDP_ARCH, FSDP["n_layers"], False, FSDP["steps"])}
+                           FSDP_MOE["exact_steps"], 1),
+             "dense": (FSDP_ARCH, FSDP["n_layers"], False, FSDP["steps"],
+                       1)}
 #: serving under ``serve_rules(..., weights_fsdp=True)`` in f32: a prefill
 #: of 2 x 256 tokens (one row a data rank), then greedy decode steps
 #: (``decode_step``'s logits, the tokens their ``vocab_argmax``, as
@@ -4290,11 +4305,21 @@ FSDP_REDUCED = {
                 "48 -> 1 (its llm_train cell)",
     "K": "8 -> 4 with bf16 accumulators",
     "seq": "train_4k's 4096 -> 2048",
-    "global_batch": "256 -> 2 (one agent: one row a data rank)",
-    "steps": "qwen3-32b 3 -> 2, serving's decode 16 -> 2 (the script's "
-             "time: a qwen3-32b step moves ~6.5 GB a rank through gloo, "
-             "10.6-18.5 s, and an f32 decode step gathers 975 MB, "
-             "3.3-4.8 s)",
+    "global_batch": "256 -> 2 (one agent: one row a data rank); qwen3-moe's "
+                    "exp-sum run 4 (one row a data rank a microbatch)",
+    "microbatches": "8 -> 2 (qwen3-moe's exp-sum run), 8 -> 1 (the others)",
+    "steps": "qwen3-32b 3 -> 2, qwen3-moe's exp-sum run 2 -> 1 of 2 "
+             "microbatches (1.54 times a one-microbatch step's bytes "
+             "through gloo: its gathers and reduce-scatters twice), "
+             "serving's decode 16 -> 2 (the script's time: a qwen3-32b "
+             "step moves ~6.5 GB a rank through gloo, 10.6-18.5 s, and an "
+             "f32 decode step gathers 975 MB, 3.3-4.8 s)",
+    "capacity_factor": "qwen3-moe's microbatched run 1.25 -> 0.5 (half the "
+                       "assignments drop, so which drop depends on the "
+                       "microbatch's rows)",
+    "labels": "qwen3-moe's microbatched run: the first 0, 512, 1,024 and "
+              "1,536 positions of its 4 rows masked (unequal label counts "
+              "a microbatch); the others unmasked",
     "mesh": "(data 2, model 2): four ranks share one H100 over gloo; the "
             "production mesh is 16 x 16"}
 #: each rank's state (its parameter and memory shards) against the agent's
@@ -4309,7 +4334,19 @@ FSDP_PEAK_SUM = 72e9
 #: (the planted fault) move it by far more
 FSDP_AUX_TOL = dict(rtol=1e-5, atol=0.0)
 FSDP_PLANTED = ("replicated_counted_on_every_data_rank",
-                "batch_sum_skipped", "load_balance_over_local_means")
+                "batch_sum_skipped", "load_balance_over_local_means",
+                "microbatch_from_local_rows")
+#: the train run whose first step a planted fault is read from (FSDP_RUNS'
+#: key), not run: the clip norm that the replicated leaves counted on both
+#: data ranks give over qwen3-32b's gradient; the clip norm and the
+#: replicas of qwen3-moe's exact gradient before its sum over the data
+#: axes (what the step would clip and apply with the sum skipped)
+FSDP_READ_FROM = {"replicated_counted_on_every_data_rank": "dense",
+                  "batch_sum_skipped": "moe_exact"}
+#: the planted faults that run a step of their own, each as a step of a
+#: train run (FSDP_RUNS' key): the microbatch grouping, of the
+#: microbatched run
+FSDP_PLANTED_IN = {"microbatch_from_local_rows": "moe"}
 
 
 def _fsdp_cfg(arch, n_layers, dtype=None):
@@ -4320,15 +4357,17 @@ def _fsdp_cfg(arch, n_layers, dtype=None):
                                                  compute_dtype=dtype)
 
 
-def _fsdp_tc(exact=False):
+def _fsdp_tc(exact=False, microbatches=1):
     from repro_torch.training import train_step as TS
 
     if exact:
         return TS.TrainConfig(memory_mode="exact", T=FSDP_MOE["exact_T"],
-                              use_kernel=True, grad_clip=DIST["grad_clip"])
+                              use_kernel=True, grad_clip=DIST["grad_clip"],
+                              microbatches=microbatches)
     return TS.TrainConfig(memory_mode="expsum", K=FSDP["K"],
                           acc_dtype=FSDP["acc_dtype"], use_kernel=True,
-                          grad_clip=DIST["grad_clip"])
+                          grad_clip=DIST["grad_clip"],
+                          microbatches=microbatches)
 
 
 def _fsdp_counted(specs, mesh) -> list:
@@ -4362,12 +4401,16 @@ def _checksums(leaves) -> "torch.Tensor":
 
 def _replicas_equal(leaves, specs, mesh) -> bool:
     """Every leaf bit-equal (by checksum) on the ranks whose coordinates
-    agree on the axes that split it."""
+    agree on the axes that split it (gathered outside ``comm``'s counts:
+    it may run inside a step)."""
     import torch
-    from repro_torch.distributed import comm
     from repro_torch.distributed import sharding as SH
 
-    sums = comm.all_gather(_checksums(leaves), None).cpu()   # (world, n)
+    mine = _checksums(leaves).cpu()
+    sums = [torch.empty_like(mine)
+            for _ in range(torch.distributed.get_world_size())]
+    torch.distributed.all_gather(sums, mine)
+    sums = torch.stack(sums)                                  # (world, n)
     ranks = mesh.mesh
     coords = [dict(zip(mesh.mesh_dim_names,
                        (ranks == r).nonzero()[0].tolist()))
@@ -4396,16 +4439,23 @@ def _drawn_and_cut(draw, specs, mesh, dev):
 
 
 def fsdp_train(dev, arch, n_layers, tc, steps, mesh=None,
-               timed=False, bad_counted=None) -> dict:
+               timed=False, bad_counted=None, skip_sum=False) -> dict:
     """``steps`` train steps of ``arch`` at ``n_layers`` from the seed-0
-    draw, one agent of FSDP["batch"] rows: in one process (``mesh`` None)
-    or on this rank's shards and rows under ``build_rules``.  Losses, the
-    clip norm the step used beside the spec tree's norm of its gradient,
-    ms per step, launches, the collectives by group, peak memory, the
-    state's bytes and its parameters (whole in one process, this rank's
-    shards on a mesh, with whether every replica is bit-equal).  With
+    draw, one agent of ``tc.microbatches`` x FSDP["batch"] rows (with more
+    than one microbatch, FSDP_MOE["masked"] label positions masked by row
+    and a MoE's capacity factor FSDP_MOE's): in one process (``mesh``
+    None) or on this rank's shards and rows under ``build_rules``.
+    Losses, the clip norm the step used beside the spec tree's norm of its
+    gradient, ms per step, launches, the collectives by group, peak
+    memory, the state's bytes and its parameters (whole in one process,
+    this rank's shards on a mesh, with whether every replica is
+    bit-equal).  With
     ``bad_counted`` (a ``model_counted`` in place), the clip norm the
-    first step would take with those flags, beside the spec tree's."""
+    first step would take with those flags, beside the spec tree's; with
+    ``skip_sum``, the first step's gradient before its sum over the data
+    axes (as the step would clip and apply it with the sum skipped): its
+    clip norm beside the spec tree's norm of the summed one, and whether
+    its replicas are bit-equal."""
     import torch
     from repro_torch import convert as CV
     from repro_torch import tree as TR
@@ -4418,10 +4468,19 @@ def fsdp_train(dev, arch, n_layers, tc, steps, mesh=None,
     from repro_torch.training import train_step as TS
 
     cfg = _fsdp_cfg(arch, n_layers)
+    M = tc.microbatches
+    if M > 1 and cfg.moe is not None:
+        cfg = cfg.replace(moe=dataclasses.replace(
+            cfg.moe, capacity_factor=FSDP_MOE["capacity_factor"]))
     data = iter(TokenPipeline(vocab=cfg.vocab, seq_len=FSDP["seq"],
-                              batch_per_agent=FSDP["batch"], n_agents=1,
+                              batch_per_agent=FSDP["batch"] * M, n_agents=1,
                               seed=0))
     batches = [next(data) for _ in range(steps)]
+    if M > 1:
+        for b in batches:
+            b["labels"] = b["labels"].copy()        # a view of the tokens
+            for row, n in enumerate(FSDP_MOE["masked"]):
+                b["labels"][:, row, :n] = -1
     rules = specs = None
     on_card = dev.type == "cuda"
 
@@ -4459,8 +4518,22 @@ def fsdp_train(dev, arch, n_layers, tc, steps, mesh=None,
             bad.append((float(torch.sqrt(wrong)), clips[-1][1]))
         return real_clip(tree, max_norm, norm)
 
+    skipped = []
+    real_sum = TS._sum_over_rows
+
+    def sum_spy(grads, summed, rows):
+        if not skipped:
+            sq = sum(torch.sum(torch.square(g.float()))
+                     for g, c in zip(grads, counted) if c)
+            torch.distributed.all_reduce(sq)     # not the step's: uncounted
+            skipped.append(float(torch.sqrt(sq)))
+            skipped.append(_replicas_equal(grads, TR.leaves(specs), mesh))
+        return real_sum(grads, summed, rows)
+
     if mesh is not None:
         TS.clip_by_global_norm = spy
+        if skip_sum:
+            TS._sum_over_rows = sum_spy
     sync = (lambda: torch.cuda.synchronize(dev)) if on_card else (
         lambda: None)
     KU.reset_launches()
@@ -4482,13 +4555,14 @@ def fsdp_train(dev, arch, n_layers, tc, steps, mesh=None,
                 gnorms.append(float(met["grad_norm"]))
     finally:
         TS.clip_by_global_norm = real_clip
+        TS._sum_over_rows = real_sum
     mem = TR.leaves(memory_of(state))
     p_leaves = TR.leaves(state.params)
     if mesh is None:
         rms = [float(torch.sqrt(torch.mean(torch.square(t.float()))))
                for t in p_leaves]
     out = {"losses": losses, "grad_norms": gnorms, "clips": clips,
-           "bad_clip": bad, "ms_per_step": ms,
+           "bad_clip": bad, "skipped_sum": skipped, "ms_per_step": ms,
            "launches": dict(ops.LAUNCHES),
            "groups": {g: {op: dict(c) for op, c in o.items()}
                       for g, o in comm.GROUP_COUNTS.items()},
@@ -4688,9 +4762,11 @@ def _planted_fsdp(name):
             return [m == 0 or any("model" in SH.axes_of(p) for p in s)
                     for s in TR.leaves(specs)]
         return TS, "model_counted", counted
-    if name == "batch_sum_skipped":
-        return TS, "batch_summed", lambda *a, **k: [False] * len(
-            TS._leaf_axes(*a, **k))
+    if name == "microbatch_from_local_rows":
+        # each microbatch a slice of this rank's own rows
+        return TS, "microbatch_rows", lambda batch, M, rows: {
+            k: v.reshape((v.shape[0], M, v.shape[1] // M) + v.shape[2:])
+            for k, v in batch.items()}
     return MOE, "_over_batch", lambda t: (t, 1)
 
 
@@ -4705,11 +4781,11 @@ def _fsdp_by_group(groups: dict, steps: int) -> dict:
 
 def _fsdp_rank(rank: int, world: int, tmp: str, device: str) -> None:
     """One of the four ranks of the fsdp phase: the train runs of
-    FSDP_RUNS (qwen3-32b's timed, the clip norm of the planted counting
-    read from its first step), the other planted faults (one on
-    qwen3-moe's train step, one on its layer 0's forward), that forward,
-    the serving units; each against the one-process runs in ``tmp``;
-    results to ``tmp/fsdp<r>.json``."""
+    FSDP_RUNS (qwen3-32b's timed), the planted faults of FSDP_READ_FROM
+    read from their first steps, the others run (one on a qwen3-moe train
+    step, one on its layer 0's forward), that forward, the serving units;
+    each against the one-process runs in ``tmp``; results to
+    ``tmp/fsdp<r>.json``."""
     import torch
     from repro_torch.device import set_full_precision
     from repro_torch.distributed import sharding as SH
@@ -4729,20 +4805,31 @@ def _fsdp_rank(rank: int, world: int, tmp: str, device: str) -> None:
     res = {"rank": rank, "coords": coords}
     torch.distributed.barrier()
     res["planted"] = {}
-    for key, (arch, n, exact, steps) in FSDP_RUNS.items():
-        dense = key == "dense"
-        run = fsdp_train(dev, arch, n, _fsdp_tc(exact), steps, mesh,
-                         timed=dense, bad_counted=_planted_fsdp(
-                             FSDP_PLANTED[0])[2] if dense else None)
+    counting, skipping = FSDP_PLANTED[:2]
+    for key, (arch, n, exact, steps, mb) in FSDP_RUNS.items():
+        run = fsdp_train(dev, arch, n, _fsdp_tc(exact, mb), steps, mesh,
+                         timed=key == "dense", bad_counted=_planted_fsdp(
+                             counting)[2] if key == FSDP_READ_FROM[
+                                 counting] else None,
+                         skip_sum=key == FSDP_READ_FROM[skipping])
         res[key] = _fsdp_vs(run, ref[key], mesh)
-        if dense:
+        if run["bad_clip"]:
             ok, err = close_np(*map(list, zip(*run["bad_clip"])),
                                TP_NORM_TOL)
-            res["planted"][FSDP_PLANTED[0]] = {
+            res["planted"][counting] = {
                 "passes_the_check": ok, "max_abs_clip_norm_diff": err,
                 "clip_norms": run["bad_clip"]}
+        if run["skipped_sum"]:
+            norm, equal = run["skipped_sum"]
+            ok, err = close_np([norm], [run["clips"][0][1]], TP_NORM_TOL)
+            res["planted"][skipping] = {
+                "passes_the_check": ok and equal,
+                "max_abs_clip_norm_diff": err,
+                "replicated_bit_equal": equal}
         del run
-    for name in FSDP_PLANTED[1:]:
+    for name in FSDP_PLANTED:
+        if name in FSDP_READ_FROM:
+            continue
         mod, attr, bad = _planted_fsdp(name)
         real = getattr(mod, attr)
         setattr(mod, attr, bad)
@@ -4754,12 +4841,14 @@ def _fsdp_rank(rank: int, world: int, tmp: str, device: str) -> None:
                 res["planted"][name] = {"passes_the_check": ok,
                                         "max_abs_aux_diff": err}
                 continue
-            run = fsdp_train(dev, MOE_ARCH, FSDP_MOE["n_layers"],
-                             _fsdp_tc(), FSDP["planted_steps"], mesh)
+            key = FSDP_PLANTED_IN[name]
+            arch, n, exact, _, mb = FSDP_RUNS[key]
+            run = fsdp_train(dev, arch, n, _fsdp_tc(exact, mb),
+                             FSDP["planted_steps"], mesh)
         finally:
             setattr(mod, attr, real)
         k = FSDP["planted_steps"]
-        ok_l, err_l = close_np(run["losses"], ref["moe"]["losses"][:k],
+        ok_l, err_l = close_np(run["losses"], ref[key]["losses"][:k],
                                DIST_LOSS_TOL)
         ok_c, err_c = close_np([c[0] for c in run["clips"]],
                                [c[1] for c in run["clips"]], TP_NORM_TOL)
@@ -4804,16 +4893,24 @@ def fsdp_phase(dev) -> dict:
     first, then four gloo ranks, each held against them (a leaf's
     parameters past DIST_ULPS against TP_SPREAD_FACTOR times the
     one-process run's own spread through cuBLASLt, run after the ranks
-    where one is); the planted faults must fail."""
+    where one is); the planted faults must fail.  Its temporary files
+    (the one-process runs' whole parameters) are removed at its end."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fsdp_")
+    try:
+        return _fsdp_phase(dev, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _fsdp_phase(dev, tmp: str) -> dict:
     import torch
     from repro_torch.distributed import comm
 
     t_phase = time.perf_counter()
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_fsdp_")
     torch.cuda.empty_cache()
     ref, summary = {}, {}
-    for key, (arch, n, exact, steps) in FSDP_RUNS.items():
-        run = fsdp_train(dev, arch, n, _fsdp_tc(exact), steps)
+    for key, (arch, n, exact, steps, mb) in FSDP_RUNS.items():
+        run = fsdp_train(dev, arch, n, _fsdp_tc(exact, mb), steps)
         run["params"] = [t.cpu() for t in run["params"]]
         torch.cuda.empty_cache()
         check(all(v > DIST["grad_clip"] for v in run["grad_norms"]),
@@ -4842,20 +4939,21 @@ def fsdp_phase(dev) -> dict:
         with open(os.path.join(tmp, f"fsdp{r}.json")) as f:
             ranks.append(json.load(f))
     spread = {}
-    for key, (arch, n_layers, exact, steps) in FSDP_RUNS.items():
+    for key, (arch, n_layers, exact, steps, mb) in FSDP_RUNS.items():
         if any(u > DIST_ULPS for r in ranks
                for u in r[key]["param_ulps"].values()):
             # the one-process run's own spread, where a rank is past the
             # limit
             with cublaslt():
-                alt = fsdp_train(dev, arch, n_layers, _fsdp_tc(exact), steps)
+                alt = fsdp_train(dev, arch, n_layers, _fsdp_tc(exact, mb),
+                                 steps)
             spread[key] = param_ulps(alt["names"], alt["params"], torch.load(
                 path, mmap=True)[key]["params"])[0]
             del alt
             torch.cuda.empty_cache()
     for r in ranks:
         tag = f"fsdp rank {r['rank']} {r['coords']}"
-        for key, (_, _, exact, steps) in FSDP_RUNS.items():
+        for key, (_, _, exact, steps, _) in FSDP_RUNS.items():
             x = r[key]
             limit = {k: max(DIST_ULPS, TP_SPREAD_FACTOR
                             * spread.get(key, {}).get(k, 0.0))
@@ -4898,7 +4996,7 @@ def fsdp_phase(dev) -> dict:
         row = {"rank": r["rank"], "coords": r["coords"],
                "seconds": r["seconds"], "planted": r["planted"],
                "moe_forward": r["moe_forward"], "serve": r["serve"]}
-        for k, (_, _, _, steps) in FSDP_RUNS.items():
+        for k, (_, _, _, steps, _) in FSDP_RUNS.items():
             x = dict(r[k])
             x.pop("param_ulps")
             x["by_group_per_step"] = _fsdp_by_group(x.pop("groups"), steps)

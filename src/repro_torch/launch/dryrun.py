@@ -45,21 +45,43 @@ cache and tokens), summed by part, and ``analytic`` as in the one-card
 record.
 
 The collective record: rank 0's step of the shape's unit
-(``make_train_step``, ``make_prefill``, ``make_serve_step``) runs at the
-shape's full size on ``meta`` tensors (its local shards under the specs)
-under the rules and the mesh, and ``distributed.comm`` counts each
-collective it would issue: at full depth (``collectives``:
-``bytes_by_kind``, ``counts`` and ``effective_bytes_per_device`` under the
-JAX dry-run's HLO kind names and its ring factors ``COLL_FACTOR``) and at
-scan trip counts 2 and 3, extrapolated affine in L
-(``extrapolated.collective_bytes_by_kind`` and
-``collective_effective_bytes_per_device``), as the JAX dry-run reads them
-from XLA's partitioned HLO.  The train unit is ``TRAIN_CONFIG`` with the
-update's plain version (a kernel takes no meta tensor; it issues no
-collective) and one microbatch, where the JAX dry-run lowers its train
-records at ``TrainConfig(microbatches=8)``.  Records are JSON files in
-``--out`` (``experiments/dryrun_torch``), read by
-``repro_torch.experiments.roofline``.
+(``make_train_step``, ``make_prefill``, ``make_serve_step``) runs on
+``meta`` tensors (its local shards under the specs) under the rules and
+the mesh, and ``distributed.comm`` counts each collective it would issue
+(``bytes_by_kind``, ``counts`` and ``effective_bytes_per_device`` under
+the JAX dry-run's HLO kind names and its ring factors ``COLL_FACTOR``), as
+the JAX dry-run reads them from XLA's partitioned HLO.  The train unit is
+``TRAIN_CONFIG``, at the JAX dry-run's ``TrainConfig(microbatches=8)``,
+with the update's plain version (a kernel takes no meta tensor; it issues
+no collective).
+
+* A prefill or decode record (and a train record at one microbatch):
+  ``collectives`` is the count of the step at full depth, and
+  ``extrapolated.collective_bytes_by_kind`` and
+  ``collective_effective_bytes_per_device`` its counts at scan trip
+  counts 2 and 3, extrapolated affine in L.
+* A train record at M = ``microbatches`` > 1 (every production one, M =
+  8): the step is counted at trip counts 2 and 3 and at the two
+  microbatch counts of ``COUNT_MICROBATCHES`` (2 and 4: at one
+  microbatch a step exchanges no rows), and ``collectives`` (bytes,
+  counts and effective bytes) is those four counts extrapolated bilinear
+  in (L, M) to the model's trip count and M; ``extrapolated`` holds the
+  same bytes with ``trip_count`` and ``microbatches``.  Each layer's
+  collectives (under fsdp its gathers, their reduce-scatters) repeat with
+  every microbatch; the rows' exchange, the sums over the batch axes, the
+  clip and the consensus are the part constant in M.  The extrapolation
+  is exact where each microbatch's bytes are affine in M.  A MoE's expert
+  buffers are not quite: their capacity ``moe._capacity`` is rounded up
+  to a multiple of 8 per microbatch, so M·C(M) moves with M where it does
+  not divide evenly.  qwen3-moe-30b-a3b's does (exact); kimi-k2-1t-a32b's
+  capacity-sized bytes are 27,360 / 27,328 of the true count on 16x16
+  (2^20 tokens an agent: M·C = 27,312, 27,328, 27,328 at M = 2, 4, 8;
+  +0.12%) and 13,664 / 13,696 on 2x16x16 (-0.23%).
+
+Each train record states ``microbatches``; a ``--probe`` runs at the
+most microbatches its cut batch splits into, listed under ``reduced``.
+Records are JSON files in ``--out`` (``experiments/dryrun_torch``), read
+by ``repro_torch.experiments.roofline``.
 """
 from __future__ import annotations
 
@@ -96,9 +118,10 @@ N_AGENTS = 2                        # the trainer's default (launch.train)
 PROBE_BATCH = {"train": 4, "prefill": 1, "decode": 1}
 
 
-#: the trainer's defaults (exp-sum, K = 8, f32 accumulators, remat), with
+#: the trainer's defaults (exp-sum, K = 8, f32 accumulators, remat) at the
+#: JAX dry-run's eight microbatches (``TrainConfig(microbatches=8)``), with
 #: the FrODO update through the kernels (their plain versions on the CPU)
-TRAIN_CONFIG = TS.TrainConfig(use_kernel=True)
+TRAIN_CONFIG = TS.TrainConfig(microbatches=8, use_kernel=True)
 
 
 # ------------------------------------------------------------ argument bytes
@@ -169,6 +192,7 @@ def mesh_memory(cfg: ModelConfig, shape: InputShape, mesh, multi_pod: bool,
         specs = TS.train_state_specs(state, cfg, rules, mesh)
         batch = REG.input_specs(cfg, shape, n_agents)
         out["n_agents"] = n_agents
+        out["microbatches"] = tc.microbatches
         mem = {"params_bytes": shard_bytes(state.params, specs.params, mesh),
                "opt_state_bytes": shard_bytes(state.opt_state,
                                               specs.opt_state, mesh)}
@@ -284,18 +308,62 @@ def _affine_collectives(c2: Dict[str, Any], c3: Dict[str, Any],
                 COLL_FACTOR[k] * v for k, v in coll.items())}
 
 
+#: the microbatch counts of a microbatched train record's meta counts (at
+#: one microbatch a step exchanges no rows: ``train_step.microbatch_rows``)
+COUNT_MICROBATCHES = (2, 4)
+
+
+def _bilinear_collectives(c: Dict[tuple, Dict[str, Any]], L: int,
+                          M: int) -> Dict[str, Any]:
+    """A ``count_collectives`` record at trip count L and M microbatches,
+    from the counts ``c[(l, m)]`` at trip counts 2 and 3 and at the two
+    microbatch counts of ``COUNT_MICROBATCHES``, bilinear in (L, M): a
+    layer's collectives repeat with each microbatch; the once-a-step ones
+    (the rows' exchange, the sums over the batch axes, the clip, the
+    metrics, the consensus) are the part constant in M.  Exact where a
+    microbatch's bytes are affine in M (not a MoE's expert buffers whose
+    rounded capacity makes M·C(M) move: the module's docstring)."""
+    m1, m2 = COUNT_MICROBATCHES
+
+    def at(field: str, kind: str) -> float:
+        f = {lm: r[field].get(kind, 0) for lm, r in c.items()}
+        per_m = {lv: (f[(lv, m2)] - f[(lv, m1)]) / (m2 - m1) for lv in (2, 3)}
+        at_m = {lv: f[(lv, m1)] + per_m[lv] * (M - m1) for lv in (2, 3)}
+        return max(at_m[2] + (at_m[3] - at_m[2]) * (L - 2), 0)
+
+    kinds = sorted({k for r in c.values() for k in r["counts"]})
+    per_kind = {k: at("bytes_by_kind", k) for k in kinds}
+    return {"bytes_by_kind": per_kind,
+            "counts": {k: int(round(at("counts", k))) for k in kinds},
+            "effective_bytes_per_device": sum(
+                COLL_FACTOR[k] * v for k, v in per_kind.items())}
+
+
 def collective_record(cfg: ModelConfig, shape: InputShape, mesh,
                       multi_pod: bool, tc: TS.TrainConfig) -> Dict[str, Any]:
     """``collectives`` and ``extrapolated`` of one record (see the module
     docstring)."""
     tc = dataclasses.replace(tc, use_kernel=False)
     L = REG.scan_trip_count(cfg)
-    probes = {k: count_collectives(REG.reduced_layers(cfg, k), shape, mesh,
-                                   multi_pod, tc) for k in (2, 3)}
-    return {"collectives": count_collectives(cfg, shape, mesh, multi_pod,
-                                             tc),
-            "extrapolated": {"trip_count": L, **_affine_collectives(
-                probes[2], probes[3], L)}}
+    M = tc.microbatches if shape.kind == "train" else 1
+    if M == 1:
+        probes = {k: count_collectives(REG.reduced_layers(cfg, k), shape,
+                                       mesh, multi_pod, tc) for k in (2, 3)}
+        return {"collectives": count_collectives(cfg, shape, mesh,
+                                                 multi_pod, tc),
+                "extrapolated": {"trip_count": L, **_affine_collectives(
+                    probes[2], probes[3], L)}}
+    probes = {(k, m): count_collectives(
+        REG.reduced_layers(cfg, k), shape, mesh, multi_pod,
+        dataclasses.replace(tc, microbatches=m))
+        for k in (2, 3) for m in COUNT_MICROBATCHES}
+    coll = _bilinear_collectives(probes, L, M)
+    return {"collectives": coll,
+            "extrapolated": {
+                "trip_count": L, "microbatches": M,
+                "collective_bytes_by_kind": coll["bytes_by_kind"],
+                "collective_effective_bytes_per_device":
+                    coll["effective_bytes_per_device"]}}
 
 
 def run_mesh(archs: Sequence[str], shapes: Sequence[str], multi_pod: bool,
@@ -421,17 +489,26 @@ def _affine_extrapolate(p2: Dict[str, Any], p3: Dict[str, Any],
 
 def probe(cfg: ModelConfig, shape: InputShape, tc: TS.TrainConfig,
           n_agents: int, window: Optional[int], dev) -> Dict[str, Any]:
+    """The probes of one record; a train probe at ``tc.microbatches``, or
+    at the most microbatches its cut rows an agent split into."""
     batch = PROBE_BATCH[shape.kind]
     L = REG.scan_trip_count(cfg)
+    reduced = {"global_batch": f"{shape.global_batch} -> {batch}",
+               "n_layers": f"{cfg.n_layers} -> scan trip counts 2 and 3, "
+                           f"extrapolated affine in L to {L}"}
+    out: Dict[str, Any] = {"global_batch": batch}
+    if shape.kind == "train":
+        rows = batch // n_agents
+        M = max(m for m in range(1, tc.microbatches + 1) if rows % m == 0)
+        if M < tc.microbatches:
+            reduced["microbatches"] = (f"{tc.microbatches} -> {M} (the "
+                                       f"probe's {rows} rows an agent)")
+            tc = dataclasses.replace(tc, microbatches=M)
+        out["microbatches"] = M
     trips = {k: _probe_step(REG.reduced_layers(cfg, k), shape, tc, n_agents,
                             window, batch, dev) for k in (2, 3)}
     return {"probe": {"trip_counts": {str(k): v for k, v in trips.items()},
-                      "global_batch": batch,
-                      "reduced": {
-                          "global_batch": f"{shape.global_batch} -> {batch}",
-                          "n_layers": f"{cfg.n_layers} -> scan trip counts "
-                                      f"2 and 3, extrapolated affine in L "
-                                      f"to {L}"}},
+                      **out, "reduced": reduced},
             "extrapolated": _affine_extrapolate(trips[2], trips[3], L)}
 
 
@@ -459,6 +536,7 @@ def run_one(arch: str, shape: Union[str, InputShape],
         t0 = time.time()
         if shape.kind == "train":
             rec["n_agents"] = n_agents
+            rec["microbatches"] = tc.microbatches
         if shape.kind == "decode":
             rec["window_override"] = window
         rec["memory"] = argument_bytes(cfg, shape, tc, n_agents, window)

@@ -135,6 +135,34 @@ def scalarize(record: Dict[str, Any]) -> Dict[str, Any]:
     return out
 
 
+# ------------------------------------------------------- module-default sink
+
+_DEFAULT_SINK: MetricsSink = NullSink()
+
+
+def set_sink(sink: Optional[MetricsSink]) -> MetricsSink:
+    """Install the process-default sink; returns the previous one."""
+    global _DEFAULT_SINK
+    prev = _DEFAULT_SINK
+    _DEFAULT_SINK = sink if sink is not None else NullSink()
+    return prev
+
+
+def get_sink() -> MetricsSink:
+    return _DEFAULT_SINK
+
+
+def record(name: str, value: Any, step: Optional[int] = None,
+           sink: Optional[MetricsSink] = None, **extra: Any) -> None:
+    """Write one named value (plus extras) to ``sink``, or to the
+    process-default sink."""
+    rec: Dict[str, Any] = {"name": name, "value": value}
+    if step is not None:
+        rec["step"] = step
+    rec.update(extra)
+    (sink or _DEFAULT_SINK).write(rec)
+
+
 # ------------------------------------------------------ tree computations
 
 def tree_sq_sum(tree: Tree,

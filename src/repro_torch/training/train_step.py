@@ -34,10 +34,16 @@ go over the rules' agent axes, the model runs split over the "model"
 axis, and each layer's fsdp leaves are gathered over the data axes at use
 (their gradients reduce-scattered back).  The loss is the ratio of sums
 over every rank's rows; the gradients of the leaves not split over the
-batch axes are summed over them in f32, once a step.  A leaf is counted
-once in the clip's norm and in the metrics (where this rank's coordinate
-is 0 on every non-agent axis that replicates it), whose sums then span
-the whole mesh.  The FrODO update runs on the local shards, in place.
+batch axes are summed over them in f32, once a step, after the
+microbatches' accumulation.  With ``microbatches`` M > 1, microbatch m
+is the JAX step's: rows ``[m·B/M, (m+1)·B/M)`` of the agent's batch,
+wherever they lie, each rank holding its B/(M·D) of them
+(``microbatch_rows``: the batch's int rows all-gathered over the batch
+axes once a step); the loss, MoE's capacity and means then span that
+microbatch's rows on every rank.  A leaf is counted once in the clip's
+norm and in the metrics (where this rank's coordinate is 0 on every
+non-agent axis that replicates it), whose sums then span the whole mesh.
+The FrODO update runs on the local shards, in place.
 
 The sharding-spec functions (``build_rules``, ``param_specs``,
 ``train_state_specs``, ...) give the JAX package's specs for the same
@@ -466,6 +472,42 @@ def _sum_over_rows(grads: list, summed: list, rows: SH.DataAxes) -> list:
     return out
 
 
+def microbatch_rows(batch: Dict[str, torch.Tensor], M: int,
+                    rows: Optional[SH.DataAxes]) -> Dict[str, torch.Tensor]:
+    """This rank's rows of each of ``M`` microbatches, ``(A, M, b, ...)`` a
+    leaf: microbatch m is rows ``[m·B/M, (m+1)·B/M)`` of the agent's B rows
+    (the JAX step's reshape of the agent's batch), cut over the batch
+    rule's axes (``rows``: D ranks, each holding a block of B/D rows) as
+    ``batch_specs`` cuts a batch, b = B/(M·D) of them here.  With D > 1
+    the leaves of one dtype are all-gathered over those axes in one call
+    (the int tokens and labels: no activation), once a step."""
+    D = 1 if rows is None else rows.size
+    for k, v in batch.items():
+        if v.shape[1] % M:
+            raise ValueError(
+                f"{k}: {v.shape[1]} rows do not split into {M} microbatches"
+                if D == 1 else
+                f"{k}: the agent's {v.shape[1] * D} rows make {M} "
+                f"microbatches of {v.shape[1] * D / M:g} rows, which do not "
+                f"split over the batch axes' {D} ranks")
+    if rows is None:
+        return {k: v.reshape((v.shape[0], M, v.shape[1] // M) + v.shape[2:])
+                for k, v in batch.items()}
+    out = {}
+    for dtype in dict.fromkeys(v.dtype for v in batch.values()):
+        keys = [k for k, v in batch.items() if v.dtype == dtype]
+        A, B_loc = batch[keys[0]].shape[:2]
+        flat = [batch[k].reshape(A, B_loc, -1) for k in keys]
+        parts = comm.all_gather(torch.cat(flat, dim=2), rows.group)
+        # (D, A, B/D, n) -> (A, M, D, b, n): this rank's b rows of each
+        mine = parts.movedim(0, 1).reshape(A, M, D, B_loc // M, -1)[
+            :, :, rows.rank]
+        for k, part in zip(keys, mine.split([f.shape[2] for f in flat],
+                                            dim=3)):
+            out[k] = part.reshape((A, M, B_loc // M) + batch[k].shape[2:])
+    return {k: out[k] for k in batch}
+
+
 def make_train_step(cfg: ModelConfig, tc: TrainConfig, n_agents: int,
                     n_pods: int = 1, group=None) -> Callable:
     """Builds train_step(state, batch) -> (state, metrics).  Batch leaves
@@ -518,13 +560,12 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, n_agents: int,
 
     def agent_grads(flat, treedef, batch):
         """Per-agent (loss, metrics), grads — microbatched grad accumulation
-        in f32 when tc.microbatches > 1 (each microbatch a slice of this
-        rank's rows)."""
+        in f32 when tc.microbatches > 1 (``microbatch_rows``: microbatch m
+        is the JAX step's, this rank's part of it)."""
         M = tc.microbatches
         if M <= 1:
             return _agent_grads(loss_fn, flat, treedef, batch, A_loc)
-        mb = {k: v.reshape((A_loc, M, v.shape[1] // M) + v.shape[2:])
-              for k, v in batch.items()}
+        mb = microbatch_rows(batch, M, lay.rows)
         g_acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
                  for p in flat]
         l_acc, m_acc = 0.0, {"ce": 0.0, "accuracy": 0.0}

@@ -17,10 +17,11 @@ import numpy as np  # noqa: E402
 from repro.core import baselines as jb  # noqa: E402
 from repro_torch import convert, tree as TR  # noqa: E402
 from repro_torch.core import baselines as tb  # noqa: E402
-from repro_torch.core import frodo as tf  # noqa: E402
 
-# repro.core re-exports the function ``frodo`` under the module's name
+# repro.core re-exports the function ``frodo`` under the module's name,
+# and so does repro_torch.core
 jf = importlib.import_module("repro.core.frodo")
+tf = importlib.import_module("repro_torch.core.frodo")
 
 SHAPES = {"a": (3,), "b": {"w": (2, 2)}, "c": (4, 5)}
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}

@@ -5,6 +5,8 @@ Tolerances: the schedules rtol 1e-6 (the same f32 formulas; a cosine of
 f32 arguments may differ by an ulp between libraries); the transforms'
 updates rtol 1e-6 / atol 1e-7 (elementwise f32 arithmetic in the same
 order)."""
+import importlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -22,8 +24,11 @@ from repro_torch import optim as O  # noqa: E402
 from repro_torch import tree as TR  # noqa: E402
 from repro_torch.configs import registry as REG  # noqa: E402
 from repro_torch.core import baselines as B  # noqa: E402
-from repro_torch.core import frodo as F  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
+
+# the module (``repro_torch.core.frodo`` is the function, as in the JAX
+# package's ``repro.core``)
+F = importlib.import_module("repro_torch.core.frodo")
 
 WARMUP, TOTAL = 10, 50
 STEPS = [0, 1, WARMUP - 1, WARMUP, TOTAL, TOTAL + 5]

@@ -19,7 +19,11 @@ roofline's link term.
   carries collectives whose extrapolation from 2 and 3 layers equals the
   full-depth count (whisper's from 2 and 3 layers of each of its two
   stacks, recurrentgemma's from 2 and 3 groups and its rec tail), and a
-  link term.
+  link term.  These records are taken at one microbatch.
+* A microbatched train record (``TRAIN_CONFIG``'s eight microbatches, as
+  the JAX dry-run lowers its train records) extrapolates bilinear in
+  depth and microbatches; at a smoke config on (data 2, model 1) it
+  equals a direct count.
 """
 import ast
 import json
@@ -43,7 +47,14 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SHAPES = [InputShape("tiny_train", 16, 4, "train"),
           InputShape("tiny_prefill", 16, 2, "prefill"),
           InputShape("tiny_decode", 32, 2, "decode")]
-TC = dataclasses.replace(DR.TRAIN_CONFIG, use_kernel=False)
+#: one microbatch: a record's collectives are then a direct count at full
+#: depth (the microbatched records' extrapolation is held against a direct
+#: count by ``test_microbatched_record_equals_a_direct_count``)
+TC = dataclasses.replace(DR.TRAIN_CONFIG, use_kernel=False, microbatches=1)
+#: the fsdp smoke configs whose microbatched train record is counted
+#: directly at trip count 4 on (data 2, model 1), at 8 rows a data rank
+MB_ARCHS = ("qwen3-32b", "qwen3-moe-30b-a3b")
+MB_SHAPE = InputShape("tiny_train", 16, 16, "train")
 
 
 #: one unit of each family that runs tensor-parallel since the dense one:
@@ -153,9 +164,9 @@ def jax_coll_factor():
 @pytest.fixture(scope="module")
 def records(tmp_path_factory):
     out = str(tmp_path_factory.mktemp("tp_records"))
-    recs = DR.run_mesh(["h2o-danube-1.8b"], ["decode_32k"], False, out)
+    recs = DR.run_mesh(["h2o-danube-1.8b"], ["decode_32k"], False, out, TC)
     recs += [r for arch, shape in (NULL_RECORD, *FAMILY_RECORDS.items())
-             for r in DR.run_mesh([arch], [shape], False, out)]
+             for r in DR.run_mesh([arch], [shape], False, out, TC)]
     return {(r["arch"], r["shape"]): r for r in recs}, out
 
 
@@ -210,3 +221,31 @@ def test_family_records_carry_collectives_and_extrapolate(records, arch):
     # per-layer collectives affine in depth, whisper's two stacks included
     assert ext["collective_bytes_by_kind"] == coll["bytes_by_kind"]
     assert RF.roofline_terms(r)["t_link_s"] > 0
+
+
+@pytest.mark.parametrize("M", (4, 8))
+@pytest.mark.parametrize("arch", MB_ARCHS)
+def test_microbatched_record_equals_a_direct_count(arch, M):
+    """A train record at M microbatches extrapolates its counts at trip
+    counts 2 and 3 and at 2 and 4 microbatches bilinear in (L, M): at trip
+    count 4 it equals a direct meta count of the step, call for call and
+    byte for byte (the layers' gathers and reduce-scatters at every
+    microbatch, MoE's routing counts, the rows' exchange once a step).
+    The smoke MoE's capacity divides evenly at every M here; where its
+    rounding does not, the record is off by the capacity's share (the
+    dry-run module's docstring)."""
+    cfg = REG.reduced_layers(smoke(arch), 4)
+    tc = dataclasses.replace(TC, microbatches=M)
+    with ML.fake_world(2):
+        mesh = ML.make_host_mesh(1)                   # (data 2, model 1)
+        rec = DR.collective_record(cfg, MB_SHAPE, mesh, False, tc)
+        direct = DR.count_collectives(cfg, MB_SHAPE, mesh, False, tc)
+        one = DR.count_collectives(cfg, MB_SHAPE, mesh, False, TC)
+    assert rec["collectives"] == direct
+    ext = rec["extrapolated"]
+    assert (ext["trip_count"], ext["microbatches"]) == (4, M)
+    assert ext["collective_bytes_by_kind"] == direct["bytes_by_kind"]
+    # the layers' gathers repeat with each microbatch; one exchange a step
+    assert direct["counts"]["all-gather"] > M * one["counts"]["all-gather"]
+    assert direct["counts"]["reduce-scatter"] == \
+        M * one["counts"]["reduce-scatter"]

@@ -17,21 +17,31 @@ gradient clip of 0.05·sqrt(A) that binds at every step:
   routing) and a router aux weight of 1, recurrentgemma-9b and
   kimi-k2-1t-a32b, exp-sum K = 4;
 * (pod 2, data 2, model 1): qwen3-32b with two agents over "pod", mixed
-  by the consensus, each split over "data".
+  by the consensus, each split over "data";
+* (data 2, model 2) at two microbatches of 4 rows (one a data rank in
+  each): qwen3-moe-30b-a3b as above and nemotron-4-15b with 12, 2, 0 and
+  6 of its rows' positions masked.  Microbatch m is the JAX step's, rows
+  [2m, 2m + 2) of the agent's, so its capacity, its aux loss's means and
+  its CE's count of labels are those rows'.
 
 Losses, metrics and the gathered parameters agree to rtol 1e-5 / atol
 1e-6; replicated leaves are bit-equal across the ranks that hold them.
 Serving: qwen3-32b's prefill (last logits) and 4 greedy decode steps of 2
 rows at (data 2, model 2) under ``weights_fsdp``: logits rtol 1e-4 / atol
-1e-5, tokens equal.  Three planted faults must miss: replicated leaves
+1e-5, tokens equal.  Four planted faults must miss: replicated leaves
 counted on both data ranks in the clip, the batch sum skipped for the
-leaves the data axes replicate, and MoE's load balance over each rank's
-own means.  ``sharding.fsdp_dims`` names the dims where the JAX specs put
-the data axes for every config, and ``local_slice`` of a leaf split over
-"data" on one dim and "model" on another is JAX's
+leaves the data axes replicate, MoE's load balance over each rank's own
+means, and microbatches cut from each rank's own rows.
+``sharding.fsdp_dims`` names the dims where the JAX specs put the data
+axes for every config, and ``local_slice`` of a leaf split over "data" on
+one dim and "model" on another is JAX's
 ``devices_indices_map``.  The dry-run's meta counts of an fsdp train unit
-and of a decode unit under ``weights_fsdp`` at (data 2, model 1) equal a
-real gloo run's.
+at two microbatches and of a decode unit under ``weights_fsdp`` at (data
+2, model 1) equal a real gloo run's.
+
+qwen3_moe_mb2 runs again REPEATS times at two intra-op threads a rank:
+its replicated leaves stay bit-equal and its metrics equal the one-thread
+run's.
 
 One spawn of four ranks (one thread each) and three JAX subprocesses run
 side by side; the ranks' last unit runs in two 2-rank worlds.
@@ -66,6 +76,7 @@ EXACT = {"memory_mode": "exact", "T": 4}
 EXPSUM = {"memory_mode": "expsum", "K": 4}
 D2M2 = [[2, 2], ["data", "model"]]
 PODS = [[2, 2, 1], ["pod", "data", "model"]]
+MB2 = dict(EXPSUM, microbatches=2)
 MOE = {"moe": {"capacity_factor": 0.5, "router_aux_weight": 1.0}}
 #: case: (arch, [mesh shape, axes], TrainConfig keywords, config overrides)
 CASES = {"qwen3_32b_exact": ("qwen3-32b", D2M2, EXACT, {}),
@@ -73,18 +84,29 @@ CASES = {"qwen3_32b_exact": ("qwen3-32b", D2M2, EXACT, {}),
          "qwen3_moe": ("qwen3-moe-30b-a3b", D2M2, EXPSUM, MOE),
          "recurrentgemma": ("recurrentgemma-9b", D2M2, EXPSUM, {}),
          "kimi_k2": ("kimi-k2-1t-a32b", D2M2, EXPSUM, {}),
-         "qwen3_32b_pods": ("qwen3-32b", PODS, EXPSUM, {})}
-MASKED = {"nemotron_masked": (12, 2)}       # masked positions, by data rank
+         "qwen3_32b_pods": ("qwen3-32b", PODS, EXPSUM, {}),
+         "qwen3_moe_mb2": ("qwen3-moe-30b-a3b", D2M2, MB2, MOE),
+         "nemotron_masked_mb2": ("nemotron-4-15b", D2M2, MB2, {})}
+#: the agent's rows where not BATCH: two a data rank, one a data rank in
+#: each of the two microbatches
+ROWS = {"qwen3_moe_mb2": 4, "nemotron_masked_mb2": 4}
+#: masked positions, by row of the agent's batch (BATCH rows: one a data
+#: rank)
+MASKED = {"nemotron_masked": (12, 2), "nemotron_masked_mb2": (12, 2, 0, 6)}
 #: planted fault: the case it plants into
 PLANTED = {"replicated_counted_on_every_data_rank": "qwen3_32b_exact",
            "batch_sum_skipped": "nemotron_masked",
-           "load_balance_over_local_means": "qwen3_moe"}
+           "load_balance_over_local_means": "qwen3_moe",
+           "microbatch_from_local_rows": "qwen3_moe_mb2"}
 SERVE_ARCH = "qwen3-32b"
+#: the microbatched MoE case run again at two intra-op threads a rank
+REPEATS, REPEAT_CASE = 3, "qwen3_moe_mb2"
 METRICS = ("loss", "grad_norm", "ce", "accuracy", "consensus_error_pre_mix",
            "consensus_error", "param_norm", "memory_norm", "update_norm")
-#: the dry-run's fsdp units at (data 2, model 1): a train step, and a
-#: decode step under ``weights_fsdp``
-UNITS = (InputShape("tiny_train", 16, 2, "train"),
+#: the dry-run's fsdp units at (data 2, model 1): a train step of two
+#: microbatches (4 rows: one a data rank in each), and a decode step under
+#: ``weights_fsdp``
+UNITS = (InputShape("tiny_train", 16, 4, "train"),
          InputShape("tiny_decode", 32, 2, "decode"))
 
 
@@ -111,7 +133,8 @@ def write_inputs(d):
         np.savez(os.path.join(d, f"{name}.params.npz"),
                  **{k: v.numpy() for k, v in
                     SH.flatten_with_paths(p).items()})
-        toks = rng.integers(0, 512, size=(STEPS, A, BATCH, SEQ + 1))
+        toks = rng.integers(0, 512, size=(STEPS, A, ROWS.get(name, BATCH),
+                                          SEQ + 1))
         labels = toks[..., 1:].copy()
         for row, n in enumerate(MASKED.get(name, ())):
             labels[:, :, row, :n] = -1
@@ -265,8 +288,9 @@ JAX_SCRIPT = textwrap.dedent("""
 """)
 #: the JAX units in processes of their own, run side by side: (train
 #: cases, whether the part also runs the serving units and the specs)
-JAX_PARTS = ((("qwen3_32b_exact", "nemotron_masked"), False),
-             (("qwen3_moe", "recurrentgemma"), False),
+JAX_PARTS = ((("qwen3_32b_exact", "nemotron_masked", "nemotron_masked_mb2"),
+              False),
+             (("qwen3_moe", "recurrentgemma", "qwen3_moe_mb2"), False),
              (("kimi_k2", "qwen3_32b_pods"), True))
 
 
@@ -288,10 +312,19 @@ def _local_means(t):
     return t, 1
 
 
+def _local_microbatches(batch, M, rows):
+    """The planted grouping: each microbatch a slice of this rank's own
+    rows (the union of every rank's m-th slice, not the agent's m-th)."""
+    return {k: v.reshape((v.shape[0], M, v.shape[1] // M) + v.shape[2:])
+            for k, v in batch.items()}
+
+
 def planted(name):
     """(module, attribute, faulty replacement) of a planted fault."""
     from repro_torch.models import moe
 
+    if name == "microbatch_from_local_rows":
+        return TS, "microbatch_rows", _local_microbatches
     if name == "replicated_counted_on_every_data_rank":
         return TS, "model_counted", _counted_on_model_rank0
     if name == "batch_sum_skipped":
@@ -394,7 +427,8 @@ def unit_counts(device):
     from repro_torch.launch import dryrun as DR
     from repro_torch.launch import mesh as ML
 
-    tc = dataclasses.replace(DR.TRAIN_CONFIG, use_kernel=False)
+    tc = dataclasses.replace(DR.TRAIN_CONFIG, use_kernel=False,
+                             microbatches=2)
     return {u.kind: DR.count_collectives(
         REG.get_smoke_config("qwen3-32b"), u, ML.make_host_mesh(1), False,
         tc, device, weights_fsdp=True) for u in UNITS}
@@ -417,6 +451,13 @@ def _rank_fsdp(rank, world, d):
             out[fault] = run_case(case, d, meshes)
         finally:
             setattr(mod, attr, real)
+    torch.set_num_threads(2)
+    try:
+        for i in range(REPEATS):
+            out[f"{REPEAT_CASE}.threads2.{i}"] = run_case(REPEAT_CASE, d,
+                                                          meshes)
+    finally:
+        torch.set_num_threads(1)
     serve = run_serve(d, meshes[(2, 2)])
     # the last unit in two 2-rank worlds: (data 2, model 1)
     dist.destroy_process_group()
@@ -498,19 +539,45 @@ def test_fsdp_step_equals_the_jax_step(runs, name):
     assert port["same"], "replicated leaves differ across the ranks"
 
 
+def test_replicas_stay_equal_at_two_threads_a_rank(runs):
+    """The microbatched MoE case run again at two intra-op threads a rank:
+    each run's replicated leaves bit-equal across the ranks, its metrics
+    those of the one-thread run."""
+    d, _ = runs
+    one = port_hist(d, REPEAT_CASE)["hist"]
+    for i in range(REPEATS):
+        port = port_hist(d, f"{REPEAT_CASE}.threads2.{i}")
+        assert port["same"], f"run {i}: replicated leaves differ"
+        for got, exp in zip(port["hist"], one):
+            for k in METRICS:
+                np.testing.assert_allclose(got[k], exp[k], **TOL,
+                                           err_msg=f"run {i} {k}")
+
+
 def test_the_cases_drop_past_capacity_and_mask_unequally(runs):
-    """The MoE case's agent routes more assignments than its experts hold,
-    and the masked case's data ranks hold different label counts."""
+    """The MoE cases' agent routes more assignments than its experts hold
+    (in each microbatch of the microbatched one), and the masked cases'
+    data ranks hold different label counts; the microbatched one's
+    microbatches count other labels when grouped from each rank's own
+    rows (the planted grouping) than as the JAX step groups them."""
     from repro_torch.models import moe
 
     m = config("qwen3-moe-30b-a3b", MOE).moe
-    n_assign = BATCH * SEQ * m.top_k                 # the agent's whole batch
-    assert n_assign / m.n_experts > moe._capacity(BATCH * SEQ, m)
+    for rows in (BATCH, ROWS["qwen3_moe_mb2"] // MB2["microbatches"]):
+        n_assign = rows * SEQ * m.top_k          # one dispatch's assignments
+        assert n_assign / m.n_experts > moe._capacity(rows * SEQ, m)
     assert m.router_aux_weight == 1.0
     d, _ = runs
     _, batches = load_case(d, "nemotron_masked")
     per_rank = (batches[0]["labels"][0] >= 0).sum(axis=-1)
     assert per_rank[0] != per_rank[1]
+    _, batches = load_case(d, "nemotron_masked_mb2")
+    per_row = (batches[0]["labels"][0] >= 0).sum(axis=-1)       # 4 rows
+    M, D = MB2["microbatches"], 2
+    jax_mb = per_row.reshape(M, -1).sum(axis=1)
+    local_mb = per_row.reshape(D, M, -1).sum(axis=(0, 2))
+    assert per_row[:2].sum() != per_row[2:].sum()
+    assert sorted(jax_mb) != sorted(local_mb)
 
 
 @pytest.mark.parametrize("fault", PLANTED)
@@ -574,9 +641,9 @@ def test_meta_counts_of_an_fsdp_unit_equal_a_real_gloo_run(runs):
     with ML.fake_world(2):
         meta = json.loads(json.dumps(unit_counts("meta")))
     assert meta == real
-    # the train step: the gathers, their reduce-scatters and the batch
-    # sum; decode under weights_fsdp: the gathers alone (the model axis is
-    # 1 and decode has no backward)
+    # the train step: the rows' exchange, the gathers, their
+    # reduce-scatters and the batch sum; decode under weights_fsdp: the
+    # gathers alone (the model axis is 1 and decode has no backward)
     assert {"all-gather", "reduce-scatter", "all-reduce"} <= set(
         real["train"]["counts"])
     assert set(real["decode"]["counts"]) == {"all-gather"}

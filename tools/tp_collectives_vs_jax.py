@@ -1,9 +1,9 @@
 """The port's tensor-parallel collectives a step beside the JAX package's,
 for the families that run over the "model" axis, at their smoke configs on
 a (data 1, model 2) mesh, and for two fsdp configs' train steps on a
-(data 2, model 2) mesh (the batch and fsdp rules over "data"); and the
-dry-run's link term for one production record of each family and for the
-fsdp configs' train records.
+(data 2, model 2) mesh (the batch and fsdp rules over "data"; qwen3-32b's
+also at two microbatches); and the dry-run's link term for one production
+record of each family and for the fsdp configs' train records.
 
     PYTHONPATH=src python tools/tp_collectives_vs_jax.py [--out FILE]
 
@@ -14,6 +14,14 @@ unit with ``repro.launch.dryrun.lower_train``/``lower_decode`` on two
 (four) forced host CPU devices and reads the partitioned HLO's collectives
 (``parse_collectives``), with the layer scan unrolled so that every
 layer's collectives appear.  It runs in a subprocess on the CPU.
+
+The qwen3-32b fsdp row at two microbatches (``MB_ROW``: 4 rows, one a data
+rank in each microbatch) counts the port's step as it runs: every
+microbatch's collectives and the rows' exchange.  The JAX step
+accumulates its microbatches in a ``lax.scan``, which stays a ``while``
+loop in the partitioned HLO (only the layer scan is unrolled): the HLO
+text holds the loop body once, so the JAX side counts one microbatch's
+collectives plus the once-a-step ones.
 """
 import argparse
 import json
@@ -37,6 +45,9 @@ RECORDS = {"h2o-danube-1.8b": "train_4k", "phi-3-vision-4.2b": "train_4k",
            "recurrentgemma-9b": "prefill_32k"}
 #: fsdp configs whose smoke train step runs on (data 2, model 2)
 FSDP_ARCHS = ("qwen3-32b", "qwen3-moe-30b-a3b")
+#: an fsdp config's smoke train step at two microbatches on (data 2,
+#: model 2): (arch, global batch, microbatches)
+MB_ROW = ("qwen3-32b", 4, 2)
 #: the fsdp configs' production train records (16x16)
 FSDP_RECORDS = ("qwen3-32b", "nemotron-4-15b", "qwen3-moe-30b-a3b",
                 "recurrentgemma-9b", "kimi-k2-1t-a32b")
@@ -52,7 +63,7 @@ JAX_SCRIPT = textwrap.dedent("""
     from repro.launch import dryrun as DR
     from repro.training import train_step as TS
 
-    archs, units, fsdp = map(json.loads, sys.argv[1:4])
+    archs, units, fsdp, mb_row = map(json.loads, sys.argv[1:5])
     mesh = Mesh(np.array(jax.devices()[:2]).reshape(1, 2), ("data", "model"))
     mesh4 = Mesh(np.array(jax.devices()[:4]).reshape(2, 2),
                  ("data", "model"))
@@ -75,6 +86,13 @@ JAX_SCRIPT = textwrap.dedent("""
                                 mesh4, False, TS.TrainConfig())
         out[arch + "|" + name + "|d2m2"] = DR.parse_collectives(
             low.compile().as_text())
+    arch, batch, m = mb_row
+    cfg = REG.get_smoke_config(arch).replace(unroll_scan=True)
+    name, seq, _, kind = units[0]
+    low, _ = DR.lower_train(cfg, InputShape(name, seq, batch, kind), mesh4,
+                            False, TS.TrainConfig(microbatches=m))
+    out["%s|%s|d2m2|mb%d" % (arch, name, m)] = DR.parse_collectives(
+        low.compile().as_text())
     print(json.dumps(out))
 """)
 
@@ -87,7 +105,8 @@ def port_counts() -> dict:
     from repro_torch.launch import dryrun as DR
     from repro_torch.launch import mesh as ML
 
-    tc = dataclasses.replace(DR.TRAIN_CONFIG, use_kernel=False)
+    tc = dataclasses.replace(DR.TRAIN_CONFIG, use_kernel=False,
+                             microbatches=1)
     out = {}
     with ML.fake_world(2):
         mesh = ML.make_host_mesh(2)
@@ -103,6 +122,10 @@ def port_counts() -> dict:
             out[f"{arch}|{name}|d2m2"] = DR.count_collectives(
                 REG.get_smoke_config(arch),
                 InputShape(name, seq, batch, kind), mesh, False, tc)
+        arch, batch, m = MB_ROW
+        out[f"{arch}|{name}|d2m2|mb{m}"] = DR.count_collectives(
+            REG.get_smoke_config(arch), InputShape(name, seq, batch, kind),
+            mesh, False, dataclasses.replace(tc, microbatches=m))
     return out
 
 
@@ -112,7 +135,8 @@ def jax_counts() -> dict:
     env.pop("XLA_FLAGS", None)
     res = subprocess.run([sys.executable, "-c", JAX_SCRIPT,
                           json.dumps(ARCHS), json.dumps(UNITS),
-                          json.dumps(FSDP_ARCHS)], env=env,
+                          json.dumps(FSDP_ARCHS), json.dumps(MB_ROW)],
+                         env=env,
                          capture_output=True, text=True, timeout=1800)
     if res.returncode:
         raise RuntimeError(res.stderr[-3000:])
@@ -130,6 +154,7 @@ def link_terms() -> dict:
         t = RF.roofline_terms(rec)
         ext = rec["extrapolated"]
         out[f"{arch}|{shape}|16x16"] = {
+            "microbatches": rec.get("microbatches", 1),
             "collective_bytes_by_kind": ext["collective_bytes_by_kind"],
             "effective_bytes_per_device":
                 ext["collective_effective_bytes_per_device"],
@@ -156,7 +181,8 @@ def main(argv=None) -> int:
               f"{_fmt(res['jax'][key])} |")
     print()
     for key, t in res["link"].items():
-        print(f"{key}: link {t['t_link_s']:.4g} s, compute "
+        print(f"{key}: microbatches {t['microbatches']}, link "
+              f"{t['t_link_s']:.4g} s, compute "
               f"{t['t_compute_s']:.4g} s, memory {t['t_memory_s']:.4g} s, "
               f"{t['effective_bytes_per_device'] / 2 ** 30:.4g} GiB a "
               f"device")
