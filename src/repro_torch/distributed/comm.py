@@ -39,6 +39,7 @@ from __future__ import annotations
 
 import contextlib
 import os
+import sys
 import tempfile
 import time
 from typing import Any, Callable, Dict, Optional
@@ -311,20 +312,72 @@ def shift(t: torch.Tensor, k: int, group: Any = None) -> torch.Tensor:
 
 # ------------------------------------------------------------------ ranks
 
+#: respawns of a whole world after a rank's ``init_process_group`` lost
+#: a connection in gloo's rendezvous
+INIT_RETRIES = 2
+#: the texts of that failure ("Gloo connectFullMesh failed ... Connection
+#: closed by peer"); any other failure to join is raised at once
+RENDEZVOUS_ERRORS = ("connectFullMesh", "Connection closed by peer")
+#: seconds a rank waits for every rank to join before it gives up
+JOIN_TIMEOUT_S = 600.0
+
+
+def _mark(path: str, text: str = "") -> None:
+    with open(path, "w") as f:
+        f.write(text)
+
+
 def _rank_entry(rank: int, world: int, store_path: str, backend: str,
                 threads: int, fn: Callable, args: tuple) -> None:
+    """Join the group, wait until every rank has joined, then run ``fn``.
+    Beside the store it leaves ``init_failed.<rank>`` (holding the error)
+    if joining failed and ``ran.<rank>`` before ``fn`` runs, which
+    :func:`rendezvous_failed` reads."""
     torch.set_num_threads(threads)
-    dist.init_process_group(backend, store=dist.FileStore(store_path, world),
-                            rank=rank, world_size=world)
+    marks = os.path.dirname(store_path)
+    try:
+        store = dist.FileStore(store_path, world)
+        dist.init_process_group(backend, store=store, rank=rank,
+                                world_size=world)
+        # no rank runs fn before every rank's transport is up, so a world
+        # whose init failed has run nothing of fn
+        store.add("joined", 1)
+        deadline = time.monotonic() + JOIN_TIMEOUT_S
+        while store.add("joined", 0) < world:
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"rank {rank}: not every rank of {world} "
+                                   f"joined within {JOIN_TIMEOUT_S} s")
+            time.sleep(0.01)
+    except BaseException as e:
+        _mark(os.path.join(marks, f"init_failed.{rank}"),
+              f"{type(e).__name__}: {e}")
+        raise
+    _mark(os.path.join(marks, f"ran.{rank}"))
     try:
         fn(rank, world, *args)
     finally:
         dist.destroy_process_group()
 
 
+def rendezvous_failed(marks_dir: str) -> Optional[str]:
+    """The error of a rank of the world whose store is in ``marks_dir``
+    that lost a connection in gloo's rendezvous (one of
+    RENDEZVOUS_ERRORS), where no rank had started ``fn``; else None."""
+    names = os.listdir(marks_dir)
+    if any(m.startswith("ran.") for m in names):
+        return None
+    for m in sorted(names):
+        if m.startswith("init_failed."):
+            with open(os.path.join(marks_dir, m)) as f:
+                text = f.read()
+            if any(r in text for r in RENDEZVOUS_ERRORS):
+                return text
+    return None
+
+
 def spawn(fn: Callable, world: int, *args, backend: str = "gloo",
           store_dir: Optional[str] = None, threads: Optional[int] = None,
-          join: bool = True):
+          join: bool = True, retries: int = INIT_RETRIES):
     """Run ``fn(rank, world, *args)`` in ``world`` spawned processes, each
     a rank of a default ``backend`` group on a ``FileStore`` in
     ``store_dir`` (a temp dir unless given), with ``threads`` intra-op
@@ -332,7 +385,16 @@ def spawn(fn: Callable, world: int, *args, backend: str = "gloo",
     ``args`` are pickled: ``fn`` must be importable by name.  Raises if a
     rank raises.  With ``join=False`` it returns at once with the
     processes' ``ProcessContext`` (``while not ctx.join(): pass`` waits
-    for them); ``store_dir`` is then required."""
+    for them); ``store_dir`` is then required.
+
+    A rank runs ``fn`` only after every rank has joined the group.  With
+    ``join=True``, a world in which a rank lost a connection in gloo's
+    rendezvous ("Gloo connectFullMesh failed ... Connection closed by
+    peer", seen on loaded hosts; its cause is not known) is spawned again
+    on a fresh store, at most ``retries`` times, each retry said on
+    stderr.  Any other failure to join, and any failure once ``fn`` has
+    started, is raised at once.  (A caller that joins a ``join=False``
+    world itself reads :func:`rendezvous_failed` on ``store_dir``.)"""
     import torch.multiprocessing as mp
 
     threads = threads or max(1, torch.get_num_threads() // world)
@@ -342,8 +404,20 @@ def spawn(fn: Callable, world: int, *args, backend: str = "gloo",
         return mp.spawn(_rank_entry, args=(
             world, os.path.join(store_dir, "store"), backend, threads, fn,
             args), nprocs=world, join=False)
-    with tempfile.TemporaryDirectory(prefix="repro_torch_ranks_",
-                                     dir=store_dir) as d:
-        mp.spawn(_rank_entry, args=(world, os.path.join(d, "store"),
-                                    backend, threads, fn, args),
-                 nprocs=world, join=True)
+    for attempt in range(retries + 1):
+        with tempfile.TemporaryDirectory(prefix="repro_torch_ranks_",
+                                         dir=store_dir) as d:
+            try:
+                mp.spawn(_rank_entry, args=(world, os.path.join(d, "store"),
+                                            backend, threads, fn, args),
+                         nprocs=world, join=True)
+                return
+            except Exception:
+                why = rendezvous_failed(d)
+                if attempt == retries or why is None:
+                    raise
+                print(f"comm.spawn: a rank of {world} lost a connection in "
+                      f"the {backend} rendezvous before any ran "
+                      f"{fn.__name__} ({why.strip()[-300:]}); respawning "
+                      f"the world on a fresh store (retry {attempt + 1} of "
+                      f"{retries})", file=sys.stderr, flush=True)

@@ -22,6 +22,9 @@ its implementation suffix (its ``frodo_exact_jnp_n16384`` and
   the clock), L2 overwritten before each, the overwrite's time taken off;
 * ``us_plain``: the plain version, by events; for the exact kernel also
   ``us_library``, ``torch.addmv`` computing the same memory term;
+* ``us_copy_ceiling`` (exp-sum rows): one ``Tensor.copy_`` that reads and
+  writes as many bytes as the kernel, half each way, by events: the rate
+  this card gives a pass of that read/write mix;
 * ``kernel_bytes``: the bytes the kernel must move, each input read once
   and each output written once: exact ``(T + 3) * n * bytes`` (history and
   g read, delta and the pushed slot written), exp-sum ``2 * n * g_bytes +
@@ -186,6 +189,15 @@ def device_us(fn: Callable, reps: int,
         fn()
 
     return run(both) - run(flush)
+
+
+def copy_ceiling_us(nbytes: int, dev, reps: int,
+                    flush: Optional[Callable] = None) -> float:
+    """Events time of one device ``Tensor.copy_`` of ``nbytes // 2`` bytes
+    (as many read as written: ``nbytes`` moved)."""
+    src = torch.empty(nbytes // 2, dtype=torch.uint8, device=dev)
+    dst = torch.empty_like(src)
+    return cuda_us(lambda: dst.copy_(src), reps, flush=flush)
 
 
 # -------------------------------------------------------------------- rows
@@ -371,6 +383,9 @@ def _case(name, kernel, shape, g_dtype, state_dtype, jax_rows, dev, gen,
         row["us_device"] = device_us(kern, reps, flush)
         row["us_plain"] = cuda_us(plain, max(2, reps // 5), warmup=1,
                                   flush=flush)
+        if kernel == "expsum":
+            row["us_copy_ceiling"] = copy_ceiling_us(row["kernel_bytes"],
+                                                     dev, reps, flush)
     else:
         row["us_plain_host"] = host_us(plain, reps)
     _rate(row)

@@ -34,8 +34,16 @@
 //     weight mu(T)), before it overwrites them with g.  The copy is of raw
 //     bits, so the pushed history equals an out-of-kernel copy exactly.
 //   * Exp-sum mode gets the K <= 16 rates and coefficients by value in the
-//     kernel's parameters, and writes the new accumulators in place over the
-//     old (each thread reads an element before it writes it).
+//     kernel's parameters, packed once per optimizer on the host, and
+//     writes the new accumulators in place over the old.  K is a template
+//     parameter (1..16, one switch at launch).  A thread holds two 16-byte
+//     chunks of each accumulator and issues the loads of up to 8
+//     accumulators before it stores any (a store through `acc` would
+//     otherwise keep the next accumulator's loads behind it), so 256-512
+//     bytes a thread are in flight.  One block per tile of the leaf, with
+//     the default cache policy: on an H100 a persistent grid was 4-7%
+//     slower at full-width leaves, evict-first hints 1-2%, and a TMA ring
+//     of bulk copies 2-6% (PERF.md).
 //
 // Host interface: plain C functions (built with nvcc into a shared library
 // and called through ctypes).  Each launches on the given stream, allocates
@@ -53,6 +61,7 @@ constexpr int kMaxK = 16;
 // opt-in attribute.
 constexpr int kMaxSlots = 12288;
 constexpr long long kMaxBlocks = 1LL << 20;
+constexpr long long kMaxGrid = (1LL << 31) - 1;  // gridDim.x's limit
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -178,53 +187,148 @@ struct ExpsumWeights {
   float c[kMaxK];
 };
 
-template <typename TG, typename TA>
-__global__ void __launch_bounds__(kThreads)
-expsum_update_kernel(const TG* __restrict__ g, TA* acc,
-                     TG* __restrict__ delta, ExpsumWeights rc, int K,
-                     long long n, float alpha, float beta, int vectorized) {
-  constexpr int V = 8;  // one 16-byte chunk of bf16, two of f32
-  const long long n_vec = vectorized ? n / V : 0;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+// The loop's shape.  kBatch: accumulators whose chunks a thread loads
+// together before it stores any.  kChunks: 16-byte chunks of each
+// accumulator a thread holds at once (a block's tile is kChunks * kThreads
+// chunks of every row, chunk q of thread t at q * kThreads + t, so each
+// warp-wide access is one contiguous span).
+constexpr int kBatch = 8;
+constexpr int kChunks = 2;
 
-  for (long long c = tid; c < n_vec; c += stride) {
-    const long long i = c * V;
-    float gv[V], M[V];
-    load_vec<V>(g + i, gv);
+// 16-byte accesses of the accumulators (and of g and delta).
+__device__ __forceinline__ uint4 ld16(const void* p) {
+  return *reinterpret_cast<const uint4*>(p);
+}
+__device__ __forceinline__ void st16(void* p, const uint4& v) {
+  *reinterpret_cast<uint4*>(p) = v;
+}
+
+// N contiguous elements of g or delta <-> N floats.  N is one
+// accumulator chunk's element count, so N * sizeof(T) is 8 (bf16 beside f32
+// accumulators), 16 or 32 bytes.
+template <int N, typename T>
+__device__ __forceinline__ void load_n(const T* p, float* out) {
+  if constexpr (N * sizeof(T) == 8) {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
 #pragma unroll
-    for (int j = 0; j < V; ++j) M[j] = 0.f;
+    for (int q = 0; q < 2; ++q) {
+      const float2 f = __bfloat1622float2(h[q]);
+      out[2 * q] = f.x;
+      out[2 * q + 1] = f.y;
+    }
+  } else {
 #pragma unroll
-    for (int k = 0; k < kMaxK; ++k) {
-      if (k < K) {
-        TA* const ak = acc + (long long)k * n + i;
-        float a[V], na[V];
-        load_vec<V>(ak, a);
+    for (int j = 0; j < N; j += 16 / sizeof(T))
+      unpack(ld16(p + j), out + j, T());
+  }
+}
+template <int N, typename T>
+__device__ __forceinline__ void store_n(T* p, const float* v) {
+  if constexpr (N * sizeof(T) == 8) {
+    uint2 u;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
 #pragma unroll
-        for (int j = 0; j < V; ++j) {
-          M[j] = fmaf(rc.c[k], a[j], M[j]);
-          na[j] = rc.r[k] * (a[j] + gv[j]);
+    for (int q = 0; q < 2; ++q)
+      h[q] = __floats2bfloat162_rn(v[2 * q], v[2 * q + 1]);
+    *reinterpret_cast<uint2*>(p) = u;
+  } else {
+#pragma unroll
+    for (int j = 0; j < N; j += 16 / sizeof(T))
+      st16(p + j, pack(v + j, T()));
+  }
+}
+
+// K is a template parameter, so every loop over the accumulators unrolls
+// to exactly K.  n_chunks: 16-byte chunks of one accumulator row on the
+// vector path (0 when the pointers or n rule it out); the elements past
+// n_chunks * C go through the scalar loop.
+template <typename TG, typename TA, int K>
+__global__ void __launch_bounds__(kThreads, 2)
+expsum_update_kernel(const TG* __restrict__ g, TA* __restrict__ acc,
+                     TG* __restrict__ delta, ExpsumWeights rc, long long n,
+                     long long n_chunks, float alpha, float beta) {
+  constexpr int C = 16 / sizeof(TA);  // elements in one accumulator chunk
+  constexpr long long kTile = (long long)kChunks * kThreads;
+  const long long n_tiles = (n_chunks + kTile - 1) / kTile;
+
+  for (long long t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+    long long e[kChunks];  // first element of each chunk
+    bool in[kChunks];
+    float gv[kChunks][C], M[kChunks][C];
+#pragma unroll
+    for (int q = 0; q < kChunks; ++q) {
+      const long long c = t * kTile + q * kThreads + threadIdx.x;
+      in[q] = c < n_chunks;
+      e[q] = c * C;
+#pragma unroll
+      for (int j = 0; j < C; ++j) gv[q][j] = M[q][j] = 0.f;
+      if (in[q]) load_n<C>(g + e[q], gv[q]);
+    }
+#pragma unroll
+    for (int k0 = 0; k0 < K; k0 += kBatch) {
+      // every load of the batch is issued before its first store
+      uint4 raw[kBatch][kChunks];
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b) {
+#pragma unroll
+        for (int q = 0; q < kChunks; ++q) {
+          raw[b][q] = make_uint4(0u, 0u, 0u, 0u);
+          if (k0 + b < K && in[q])
+            raw[b][q] = ld16(acc + (long long)(k0 + b) * n + e[q]);
         }
-        store_vec<V>(ak, na);
+      }
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b) {
+        const int k = k0 + b;
+        if (k < K) {
+          const float ck = rc.c[k], rk = rc.r[k];
+#pragma unroll
+          for (int q = 0; q < kChunks; ++q) {
+            float a[C];
+            unpack(raw[b][q], a, TA());
+#pragma unroll
+            for (int j = 0; j < C; ++j) {
+              M[q][j] = fmaf(ck, a[j], M[q][j]);  // k ascending, as before
+              a[j] = rk * (a[j] + gv[q][j]);
+            }
+            raw[b][q] = pack(a, TA());
+          }
+        }
+      }
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b) {
+#pragma unroll
+        for (int q = 0; q < kChunks; ++q)
+          if (k0 + b < K && in[q])
+            st16(acc + (long long)(k0 + b) * n + e[q], raw[b][q]);
       }
     }
-    float out[V];
 #pragma unroll
-    for (int j = 0; j < V; ++j) out[j] = -(alpha * gv[j] + beta * M[j]);
-    store_vec<V>(delta + i, out);
+    for (int q = 0; q < kChunks; ++q) {
+      if (in[q]) {
+        float out[C];
+#pragma unroll
+        for (int j = 0; j < C; ++j)
+          out[j] = -(alpha * gv[q][j] + beta * M[q][j]);
+        store_n<C>(delta + e[q], out);
+      }
+    }
   }
 
-  for (long long i = n_vec * V + tid; i < n; i += stride) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = n_chunks * C + (long long)blockIdx.x * blockDim.x +
+                     threadIdx.x;
+       i < n; i += stride) {
     const float gi = to_f32(g[i]);
+    float a[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) a[k] = to_f32(acc[(long long)k * n + i]);
     float M = 0.f;
 #pragma unroll
-    for (int k = 0; k < kMaxK; ++k) {
-      if (k < K) {
-        TA* const ak = acc + (long long)k * n + i;
-        const float a = to_f32(*ak);
-        M = fmaf(rc.c[k], a, M);
-        *ak = from_f32<TA>(rc.r[k] * (a + gi));
-      }
+    for (int k = 0; k < K; ++k) {
+      M = fmaf(rc.c[k], a[k], M);
+      acc[(long long)k * n + i] = from_f32<TA>(rc.r[k] * (a[k] + gi));
     }
     delta[i] = from_f32<TG>(-(alpha * gi + beta * M));
   }
@@ -260,31 +364,63 @@ int launch_exact(const void* g, void* hist, void* delta, const void* mu,
   return (int)cudaGetLastError();
 }
 
-template <typename TG, typename TA>
-int launch_expsum(const void* g, void* acc, void* delta, const float* rates,
-                  const float* coeffs, int K, long long n, float alpha,
-                  float beta, void* stream) {
-  if (K < 1 || K > kMaxK || n < 0) return (int)cudaErrorInvalidValue;
-  if (n == 0) return (int)cudaSuccess;
-  ExpsumWeights rc;
-  for (int k = 0; k < kMaxK; ++k) {
-    rc.r[k] = k < K ? rates[k] : 0.f;
-    rc.c[k] = k < K ? coeffs[k] : 0.f;
-  }
-  const int vec = (n % 8 == 0) && aligned16(g) && aligned16(acc) &&
-                  aligned16(delta);
-  const long long units = vec ? n / 8 : n;
-  expsum_update_kernel<TG, TA><<<grid_for(units), kThreads, 0,
-                                 (cudaStream_t)stream>>>(
+// One block per tile of the leaf.
+template <typename TG, typename TA, int K>
+int launch_expsum_k(const void* g, void* acc, void* delta,
+                    const ExpsumWeights& w, long long n, float alpha,
+                    float beta, cudaStream_t stream) {
+  constexpr int C = 16 / sizeof(TA);
+  const bool vec = (n % 8 == 0) && aligned16(g) && aligned16(acc) &&
+                   aligned16(delta);
+  const long long n_chunks = vec ? n / C : 0;
+  const long long per_block = vec ? (long long)kChunks * kThreads : kThreads;
+  const long long units = vec ? n_chunks : n;
+  long long blocks = (units + per_block - 1) / per_block;
+  if (blocks > kMaxGrid) blocks = kMaxGrid;
+  if (blocks < 1) blocks = 1;
+  expsum_update_kernel<TG, TA, K><<<(int)blocks, kThreads, 0, stream>>>(
       static_cast<const TG*>(g), static_cast<TA*>(acc),
-      static_cast<TG*>(delta), rc, K, n, alpha, beta, vec);
+      static_cast<TG*>(delta), w, n, n_chunks, alpha, beta);
   return (int)cudaGetLastError();
+}
+
+// One switch picks the instantiation for K.
+template <typename TG, typename TA>
+int launch_expsum(const void* g, void* acc, void* delta,
+                  const ExpsumWeights* w, int K, long long n, float alpha,
+                  float beta, void* stream) {
+  if (K < 1 || K > kMaxK || n < 0 || w == nullptr)
+    return (int)cudaErrorInvalidValue;
+  if (n == 0) return (int)cudaSuccess;
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (K) {
+#define FRODO_EXPSUM_K(k) \
+  case k:                 \
+    return launch_expsum_k<TG, TA, k>(g, acc, delta, *w, n, alpha, beta, s);
+    FRODO_EXPSUM_K(1) FRODO_EXPSUM_K(2) FRODO_EXPSUM_K(3) FRODO_EXPSUM_K(4)
+    FRODO_EXPSUM_K(5) FRODO_EXPSUM_K(6) FRODO_EXPSUM_K(7) FRODO_EXPSUM_K(8)
+    FRODO_EXPSUM_K(9) FRODO_EXPSUM_K(10) FRODO_EXPSUM_K(11)
+    FRODO_EXPSUM_K(12) FRODO_EXPSUM_K(13) FRODO_EXPSUM_K(14)
+    FRODO_EXPSUM_K(15) FRODO_EXPSUM_K(16)
+#undef FRODO_EXPSUM_K
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
+// The build (frodo_update.py) compiles this file as UNITS objects side by
+// side, unit u holding the entries below marked for it (their kernels
+// instantiate with them), and links them into one library; without
+// FRODO_UNIT one object holds every entry.
+#ifndef FRODO_UNIT
+#define FRODO_UNIT -1
+#endif
+#define FRODO_IN_UNIT(u) (FRODO_UNIT < 0 || FRODO_UNIT == (u))
+
 extern "C" {
 
+#if FRODO_IN_UNIT(0)
 const char* frodo_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
@@ -304,20 +440,29 @@ int frodo_exact_update_bf16(const void* g, void* hist, void* delta,
   return launch_exact<__nv_bfloat16>(g, hist, delta, mu, n_slots, n, cursor,
                                      alpha, beta, stream);
 }
+#endif
 
 #define FRODO_EXPSUM_ENTRY(NAME, TG, TA)                                    \
-  int NAME(const void* g, void* acc, void* delta, const float* rates,       \
-           const float* coeffs, int K, long long n, float alpha, float beta, \
-           void* stream) {                                                  \
-    return launch_expsum<TG, TA>(g, acc, delta, rates, coeffs, K, n, alpha, \
-                                 beta, stream);                             \
+  int NAME(const void* g, void* acc, void* delta, const void* weights,     \
+           int K, long long n, float alpha, float beta, void* stream) {     \
+    return launch_expsum<TG, TA>(                                           \
+        g, acc, delta, static_cast<const ExpsumWeights*>(weights), K, n,    \
+        alpha, beta, stream);                                               \
   }
 
+#if FRODO_IN_UNIT(0)
 FRODO_EXPSUM_ENTRY(frodo_expsum_update_f32_f32, float, float)
+#endif
+#if FRODO_IN_UNIT(1)
 FRODO_EXPSUM_ENTRY(frodo_expsum_update_f32_bf16, float, __nv_bfloat16)
+#endif
+#if FRODO_IN_UNIT(2)
 FRODO_EXPSUM_ENTRY(frodo_expsum_update_bf16_f32, __nv_bfloat16, float)
+#endif
+#if FRODO_IN_UNIT(3)
 FRODO_EXPSUM_ENTRY(frodo_expsum_update_bf16_bf16, __nv_bfloat16,
                    __nv_bfloat16)
+#endif
 
 #undef FRODO_EXPSUM_ENTRY
 

@@ -6,6 +6,7 @@ Tolerances are tests/test_kernels.py's: delta f32 rtol 1e-5 / atol 1e-6,
 bf16 2e-2; the pushed exact history bit-equal; new exp-sum accumulators
 rtol/atol 1e-5 in f32 and 2e-2 in bf16.  The CUDA kernels themselves are
 held against the same plain versions on the card by chip_smoke.py."""
+import ctypes
 import os
 import subprocess
 import sys
@@ -131,3 +132,80 @@ def test_library_name_is_keyed_by_source_hash():
     p = KU.library_path()
     assert p.parent == KU.BUILD_DIR and p.name.startswith("libfrodo_update_")
     assert KU.BUILD_DIR.relative_to(ROOT).parts == ("build", "repro_torch")
+
+
+@pytest.mark.parametrize("acc_name", list(DTYPES))
+@pytest.mark.parametrize("shape", [(7,), (64, 33)])
+@pytest.mark.parametrize("K", [1, 4, 8, 16])
+def test_expsum_update_matches_pallas_at_every_k(K, shape, acc_name):
+    """The plain exp-sum version (what the CUDA kernel is held to on the
+    card) at the K the kernel instantiates at its ends and in between, at a
+    tail shape (7,: the kernel's scalar path) and at (64, 33)."""
+    rng = np.random.default_rng(100 * K + sum(shape) + len(acc_name))
+    g = jnp.asarray(rng.normal(size=shape), jnp.float32)
+    acc = jnp.asarray(rng.normal(size=(K,) + shape), DTYPES[acc_name])
+    r, c = jmem.fit_expsum(90, 0.15, K)
+    d1, a1 = jops.frodo_expsum_update(g, acc, jnp.asarray(r, jnp.float32),
+                                      jnp.asarray(c, jnp.float32), 0.02, 0.008)
+    d2, a2 = tops.frodo_expsum_update(
+        _t(g), _t(acc), torch.tensor(r, dtype=torch.float32),
+        torch.tensor(c, dtype=torch.float32), 0.02, 0.008)
+    np.testing.assert_allclose(_f32(d2), _f32(d1), **_tol("float32"))
+    acc_tol = _tol("bfloat16") if acc_name == "bfloat16" \
+        else dict(rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(_f32(a2), _f32(a1), **acc_tol)
+
+
+@pytest.mark.parametrize("K", [1, 3, 16])
+def test_expsum_weights_are_packed_as_the_kernel_takes_them(K):
+    rates = torch.linspace(0.5, 0.9, K)
+    coeffs = torch.linspace(-1.0, 2.0, K, dtype=torch.float64)
+    w = KU.pack_expsum_weights(rates, coeffs)
+    assert ctypes.sizeof(w) == 2 * 16 * 4          # float r[16], c[16]
+    assert list(w.r) == rates.tolist() + [0.0] * (16 - K)
+    assert list(w.c) == coeffs.float().tolist() + [0.0] * (16 - K)
+
+
+@pytest.mark.parametrize("K", [0, 17])
+def test_expsum_weights_refuse_k_out_of_range(K):
+    with pytest.raises(ValueError, match=f"K={K} not in 1..16"):
+        KU.pack_expsum_weights(torch.ones(K), torch.ones(K))
+
+
+def test_expsum_weights_are_packed_once_per_pair_of_tensors():
+    rates, coeffs = torch.full((4,), 0.5), torch.ones(4)
+    first = KU._packed(rates, coeffs)
+    assert KU._packed(rates, coeffs) is first       # cached: same struct
+    rates[0] = 0.25                                  # a new version
+    again = KU._packed(rates, coeffs)
+    assert again.r[0] == 0.25
+
+
+@pytest.mark.parametrize("acc_name", list(DTYPES))
+@pytest.mark.parametrize("g_name", list(DTYPES))
+def test_expsum_entry_for_each_dtype_pair(g_name, acc_name):
+    tag = {"float32": "f32", "bfloat16": "bf16"}
+    g_dt, acc_dt = getattr(torch, g_name), getattr(torch, acc_name)
+    assert KU.expsum_entry(g_dt, acc_dt) == \
+        f"frodo_expsum_update_{tag[g_name]}_{tag[acc_name]}"
+    with pytest.raises(ValueError, match="not f32/bf16"):
+        KU.expsum_entry(g_dt, torch.float16)
+
+
+PTXAS_LOG = """\
+ptxas info    : Compiling entry function '_ZN48_GLOBAL__N__ac22f7fe_15_frodo_update_cu_c63301c920expsum_update_kernelI13__nv_bfloat16S1_Li15EEEvPKT_PT0_PS2_NS_13ExpsumWeightsExxff' for 'sm_90a'
+    16 bytes stack frame, 20 bytes spill stores, 20 bytes spill loads
+ptxas info    : Used 128 registers, used 0 barriers, 16 bytes cumulative stack size
+ptxas info    : Compiling entry function '_ZN48_GLOBAL__N__ac22f7fe_15_frodo_update_cu_c63301c920expsum_update_kernelI13__nv_bfloat16fLi1EEEvPKT_PT0_PS2_NS_13ExpsumWeightsExxff' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 36 registers, used 0 barriers
+ptxas info    : Compiling entry function '_ZN48_GLOBAL__N__ac22f7fe_15_frodo_update_cu_c63301c919exact_update_kernelIfEEvPKT_PS1_S4_PKfixiffi' for 'sm_90a'
+ptxas info    : Used 42 registers, used 1 barriers
+"""
+
+
+def test_ptxas_registers_name_each_instantiation():
+    regs, spills = KU.ptxas_registers(PTXAS_LOG)
+    assert regs == {"expsum<bf16,bf16,K=15>": 128, "expsum<bf16,f32,K=1>": 36,
+                    "exact<f32>": 42}
+    assert spills == {"expsum<bf16,bf16,K=15>": 20}
