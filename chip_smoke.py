@@ -83,7 +83,8 @@ Phases, each printing one JSON line:
    both agents (``llm_train.kernels_k4``: 8.4 B elements of bf16 state);
 10. serve: the serving launcher (``repro_torch.launch.serve``) on
     h2o-danube-1.8b, mamba2-780m, qwen3-moe-30b-a3b, minicpm3-4b,
-    phi-3-vision-4.2b, whisper-tiny and recurrentgemma-9b: its default
+    phi-3-vision-4.2b, whisper-tiny, recurrentgemma-9b and nemotron-4-15b:
+    its default
     trace on the card and on the card machine's CPU (smoke configs, f32:
     equal tokens and step columns); decode (``prefill_cache``, every
     position's logits; for whisper from the cross K/V that
@@ -101,10 +102,21 @@ Phases, each printing one JSON line:
     packed run; tokens/s, TTFT, ms per step by phase and per prefill token, the
     busy share, peak memory, and one decode step over the full arena
     beside its weight-read bound.  The models run in the groups of
-    SERVE_GROUPS: qwen3-moe-30b-a3b in this process beside mamba2-780m
-    and whisper-tiny in a process of their own, then minicpm3-4b here
-    beside h2o-danube-1.8b in one process and phi-3-vision-4.2b and
-    recurrentgemma-9b in another;
+    SERVE_GROUPS: qwen3-moe-30b-a3b and nemotron-4-15b in this process
+    beside mamba2-780m and whisper-tiny in a process of their own, then
+    minicpm3-4b here beside h2o-danube-1.8b in one process and
+    phi-3-vision-4.2b and recurrentgemma-9b in another;
+10b. serve.late (after 16b, before 16c): kimi-k2-1t-a32b at full width
+    and 2 of its 61 layers (one dense, one MoE: 384 experts top 8, the
+    shared expert, the 163,840 head; SERVE_LAYERS), alone on the card
+    (SERVE_LATE says why): the default
+    trace card vs CPU, decode against forward in bf16 only, where the
+    shared expert left out and ``top_w`` not renormalised, planted in
+    decode's copy of ``moe``, must fail; its first MoE layer against the
+    plain version (``plain_grouped_moe`` with the shared expert) at the
+    config's capacity (tokens drop) and at no-drop, where the shared
+    expert left out and the tokens to expert 0 dropped must fail; traffic
+    as in 10 (each decode step beside the bytes it reads); peak memory;
 11. dryrun: ``repro_torch.launch.dryrun --all`` over the ten architectures
     x four shapes on the meta path (each record ``ok`` or skipped with
     ``registry.shape_supported``'s reason), then ``--probe`` on
@@ -206,7 +218,7 @@ Then the ``{"kernels": [...]}`` summary line (launches per path: exp2,
 exp1_point, exp3, llm_train, llm_train_exact, llm_train_expsum_bf16acc,
 llm_train_mamba2, llm_train_qwen3_moe, llm_train_minicpm3,
 llm_train_minicpm3_exact, llm_train_phi3_vision, llm_train_whisper,
-llm_train_recurrentgemma, serve_<arch> for the seven served models
+llm_train_recurrentgemma, serve_<arch> for the nine served models
 (none on the serve paths), dryrun_probe, ablations,
 distributed_stacked, distributed_world1, distributed_2ranks,
 tensor_parallel_4ranks, tensor_parallel_stacked_exact,
@@ -1748,7 +1760,7 @@ LLM_NEMOTRON = {
 #: decode path on every family the port serves
 SERVE_ARCHS = ("h2o-danube-1.8b", "mamba2-780m", "qwen3-moe-30b-a3b",
                "minicpm3-4b", "phi-3-vision-4.2b", "whisper-tiny",
-               "recurrentgemma-9b", "nemotron-4-15b")
+               "recurrentgemma-9b", "nemotron-4-15b", "kimi-k2-1t-a32b")
 #: launch/serve's default trace (card against CPU, smoke configs in f32)
 SERVE_SMOKE = dict(n_requests=8, rate=0.7, prompt_len_range=(4, 12),
                    new_tokens_range=(3, 8), max_slots=4, prefill_chunk=8,
@@ -1771,7 +1783,8 @@ SERVE_TRAFFIC = {"h2o-danube-1.8b": (SERVE_FULL, 4),
                  "phi-3-vision-4.2b": (SERVE_SHORT, 2),
                  "whisper-tiny": (SERVE_FULL, 4),
                  "recurrentgemma-9b": (SERVE_SHORT, 2),
-                 "nemotron-4-15b": (SERVE_SHORT, 2)}
+                 "nemotron-4-15b": (SERVE_SHORT, 2),
+                 "kimi-k2-1t-a32b": (SERVE_SHORT, 2)}
 #: the traffic runs served at a cut depth (the first layers of the loaded
 #: model's stack; its decode-vs-forward runs stay at full depth), so that
 #: the script stays within its limit of 1,200 s with a 10% margin on the
@@ -1824,6 +1837,28 @@ SERVE_TRAFFIC_LAYERS = {
     # its decode-vs-forward runs at full depth in bf16 (31.3 GB of
     # weights); a traffic step at 32 layers reads them all
     "nemotron-4-15b": (4, "32 -> 4, " + SERVE_TRAFFIC_CUT)}
+#: models served at a cut depth throughout (decode against forward, the
+#: MoE block and traffic alike; loaded at that depth by launch/serve's
+#: ``n_layers``), because the whole model does not fit the card:
+#: (layers, the model's ``reduced`` record).  kimi-k2-1t-a32b at 2 layers
+#: (one dense, one MoE) holds 19,615,353,856 parameters, 39.23 GB in bf16;
+#: each of its expert leaves (blocks/moe/experts/{gate,up,down}, 1 x 384 x
+#: 7168 x 2048) holds 5,637,144,576 elements, 2.6 times 2^31 - 1, and
+#: embed/table and the untied lm_head/w 1,174,405,120 each
+SERVE_LAYERS = {"kimi-k2-1t-a32b": (2, {
+    "n_layers": "61 -> 2 (one dense, one MoE layer: 39.23 GB in bf16; 3 "
+                "layers hold 73.4 GB)",
+    "float32": "no decode-vs-forward run in f32: the 2 layers' 19.62 B "
+               "parameters hold 78.5 GB in f32; its planted faults run in "
+               "bf16"})}
+#: served in this process after the tensor_parallel phase, before fsdp
+#: (serve_late_phase), beside no other phase: kimi-k2 at 2 layers holds
+#: 50.2 GB of the card at its peak (nvidia-smi's memory.used, NVIDIA H100
+#: 80GB HBM3, 700.00 W), and the phases after serving, meant to have it
+#: beside them, reach 54.6 GB (distributed) and 77.1 GB (tensor_parallel)
+#: the same way; beside them it ran out of memory.  The trainers allocate
+#: 57-68 GB, serving's first group 61 GB, the fsdp ranks up to 72 GB
+SERVE_LATE = ("kimi-k2-1t-a32b",)
 #: scheduler steps under the profiler (busy share)
 SERVE_PROFILE = (12, 15)
 #: serve.step columns that do not read a clock
@@ -1875,7 +1910,12 @@ DVF_F32_LAYERS = {"qwen3-moe-30b-a3b": 4, "minicpm3-4b": 4,
 # f32 runs at 8 layers) read 0.070 at 32 layers / 2.3e-5, on an H100
 # (NVIDIA H100 80GB HBM3, 700 W); the limits are 2.8 times that in bf16 and
 # 8.7 times in f32.  Planted, f32: the key rotated over the whole head in
-# decode 1.07.
+# decode 1.07.  kimi-k2-1t-a32b (2 of its 61 layers, one dense and one MoE;
+# bf16 only) read 0.0625 with argmax agreeing at 98.4% of positions, on an
+# H100 (NVIDIA H100 80GB HBM3, 700 W); its limit is 2 times that.  Planted,
+# bf16, in decode's moe: the shared expert left out 0.51, top_w not
+# renormalised over the chosen 8 of 384 experts 0.18 (1.4 times the limit;
+# a limit of 3 times the reading, 0.1875, would let it pass).
 DVF_TOL = {"h2o-danube-1.8b": {"bfloat16": 0.15, "float32": 1e-4},
            "ring": {"bfloat16": 0.15, "float32": 1e-4},
            "mamba2-780m": {"bfloat16": 0.6, "float32": 5e-4},
@@ -1885,10 +1925,15 @@ DVF_TOL = {"h2o-danube-1.8b": {"bfloat16": 0.15, "float32": 1e-4},
            "whisper-tiny": {"bfloat16": 0.075, "float32": 4e-5},
            "recurrentgemma-9b": {"bfloat16": 0.25, "float32": 3e-4},
            "hybrid_ring": {"float32": 3e-4},
-           "nemotron-4-15b": {"bfloat16": 0.2, "float32": 2e-4}}
+           "nemotron-4-15b": {"bfloat16": 0.2, "float32": 2e-4},
+           "kimi-k2-1t-a32b": {"bfloat16": 0.125}}
+#: the shared expert left out of moe.moe_mlp (planted in decode's copy of
+#: moe, and in the MoE block's check)
+SHARED_EXPERT_LEFT_OUT = ('if "shared" in params:', "if False:")
 #: planted faults, each a one-line change to a copy of a module's source
 #: (decode's ``A``, attention, ``S``, ssm, ``MOE``, moe, or ``R``, rglru;
-#: ``D``: decode itself) that the f32 decode-vs-forward check must catch:
+#: ``D``: decode itself) that the f32 decode-vs-forward check (the bf16
+#: one of a model of SERVE_LAYERS, which has no f32 run) must catch:
 #: (module, run, old, new)
 DVF_PLANTED = {
     "rope_query_off_by_one": (
@@ -1932,7 +1977,25 @@ DVF_PLANTED = {
         "k_new = L.apply_rope(k_new, p, cfg.rope_theta, cfg.rope_fraction,\n"
         "                         ctx.rope)",
         "k_new = L.apply_rope(k_new, p, cfg.rope_theta, 1.0)"),
+    "moe_shared_expert_left_out": ("MOE", "kimi-k2-1t-a32b",
+                                   *SHARED_EXPERT_LEFT_OUT),
+    "moe_top_w_not_renormalised": (
+        "MOE", "kimi-k2-1t-a32b",
+        "top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)",
+        "top_w = top_w"),
 }
+#: the MoE block at full width against its plain version
+#: (plain_grouped_moe, with the shared expert): the loaded model's first
+#: MoE layer on 2 x 256 bf16 inputs from the model's generator, at the
+#: config's capacity (kimi-k2: 1.25, C = 16 for 512 tokens, so tokens
+#: drop) and at the no-drop capacity, within DIST_MOE_TOL; each planted
+#: fault in moe.py must fail it at both
+MOE_BLOCK = dict(batch=2, seq=256)
+MOE_BLOCK_ARCHS = ("kimi-k2-1t-a32b",)
+MOE_BLOCK_PLANTED = {
+    "moe_shared_expert_left_out": SHARED_EXPERT_LEFT_OUT,
+    "moe_tokens_to_expert_0_dropped": DVF_PLANTED[
+        "moe_tokens_to_expert_0_dropped"][2:]}
 
 
 def planted_module(module, old: str, new: str):
@@ -1977,7 +2040,8 @@ def serve_dvf(dev, label, cfg, params, toks, window_override=None,
     model's ``frames``, which encode_for_decode turns into the cross K/V
     decode reads) with one model: ``(reading, {planted fault: reading})``;
     the reading must pass ``DVF_TOL[label]``, each planted fault of
-    ``label`` (f32 runs only) must fail it."""
+    ``label`` (f32 runs only; bf16 for a model of SERVE_LAYERS) must fail
+    it."""
     from repro_torch.models import attention as A
     from repro_torch.models import decode as D
     from repro_torch.models import moe as MOE
@@ -2016,7 +2080,8 @@ def serve_dvf(dev, label, cfg, params, toks, window_override=None,
              n_layers=cfg.n_layers)
     planted = {}
     for name, (mod, run, old, new) in DVF_PLANTED.items():
-        if run != label or dtype != "float32":
+        if run != label or dtype != ("bfloat16" if label in SERVE_LAYERS
+                                     else "float32"):
             continue
         if mod == "D":
             e = gap(planted_module(D, old, new))
@@ -2040,7 +2105,6 @@ def serve_traffic(dev, arch, cfg, params, gen, tmp) -> tuple:
     import numpy as np
     import torch
     from repro_torch import tree as TR
-    from repro_torch.configs import registry as REG
     from repro_torch.kernels import frodo_update as KU
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import frames_shape, run_traffic, traffic
@@ -2058,18 +2122,13 @@ def serve_traffic(dev, arch, cfg, params, gen, tmp) -> tuple:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     KU.reset_launches()
-    # run_traffic takes its config from the registry: give it ``cfg``
-    # (which may be a depth cut of the registry's)
-    full = REG.get_config
-    REG.get_config = lambda a: cfg if a == arch else full(a)
-    try:
-        summary = run_traffic(arch=arch, smoke=False, device=dev,
-                              init_fn=lambda seed: params, metrics_out=path,
-                              quiet=True, profile_dir=prof_dir,
-                              profile_start=SERVE_PROFILE[0],
-                              profile_stop=SERVE_PROFILE[1], **trace_kw)
-    finally:
-        REG.get_config = full
+    # ``cfg`` may be a depth cut of the registry's
+    summary = run_traffic(arch=arch, smoke=False, device=dev,
+                          init_fn=lambda seed: params, metrics_out=path,
+                          quiet=True, profile_dir=prof_dir,
+                          profile_start=SERVE_PROFILE[0],
+                          profile_stop=SERVE_PROFILE[1],
+                          n_layers=cfg.n_layers, **trace_kw)
     torch.cuda.synchronize(dev)
     launches = dict(ops.LAUNCHES)
     check(sum(launches.values()) == 0,
@@ -2122,6 +2181,7 @@ def serve_traffic(dev, arch, cfg, params, gen, tmp) -> tuple:
     dec_dev_ms = sum(us for _, us in rows_k.values()) / 1e3
     arena_bytes = sum(t.numel() * t.element_size()
                       for t in TR.leaves(sch.pool.arena))
+    step_bytes = decode_read_bytes(cfg, params, n)
     del sch
     p0, p1 = SERVE_PROFILE
     decode_steps = [r for r in steps if r["n_decode"] > 0]
@@ -2163,12 +2223,75 @@ def serve_traffic(dev, arch, cfg, params, gen, tmp) -> tuple:
             "device_ms": dec_dev_ms if rows_k else None,
             "kernels": sum(c for c, _ in rows_k.values()),
             "weight_read_bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3,
+            "step_read_bytes": step_bytes,
+            "step_read_bound_ms": step_bytes / HBM_BYTES_PER_S * 1e3,
             "arena_bytes": arena_bytes,
             "weight_and_arena_read_bound_ms": (n_bytes + arena_bytes)
             / HBM_BYTES_PER_S * 1e3},
         "solo_vs_packed": f"first {n_solo} requests bit-equal",
         "engine_vs_solo": "bit-equal"}
     return out, launches
+
+
+def decode_read_bytes(cfg, params, rows: int) -> int:
+    """The weight bytes one decode step of ``rows`` tokens reads: every
+    leaf whole (MoE decode runs every expert, ``moe.moe_mlp``'s batched
+    products), but an untied embedding table, of which it gathers
+    ``rows`` rows."""
+    from repro_torch import tree as TR
+
+    n = sum(t.numel() * t.element_size() for t in TR.leaves(params))
+    if cfg.tie_embeddings:
+        return n
+    table = params["embed"]["table"]
+    return n - table.numel() * table.element_size() \
+        + rows * table.shape[-1] * table.element_size()
+
+
+def serve_moe_block(dev, cfg, params, gen) -> dict:
+    """The loaded model's first MoE layer (``blocks/moe`` at index 0)
+    against plain_grouped_moe on MOE_BLOCK's bf16 inputs, at the config's
+    capacity and at the no-drop one, within DIST_MOE_TOL; each planted
+    fault of MOE_BLOCK_PLANTED must fail at both."""
+    import torch
+    from repro_torch import tree as TR
+    from repro_torch.models import moe as MOE
+
+    p = TR.tree_map(lambda t: t[0], params["blocks"]["moe"])
+    x = torch.randn((MOE_BLOCK["batch"], MOE_BLOCK["seq"], cfg.d_model),
+                    generator=gen, device=dev).to(torch.bfloat16)
+    n = MOE_BLOCK["batch"] * MOE_BLOCK["seq"]
+    planted = {name: planted_module(MOE, old, new)
+               for name, (old, new) in MOE_BLOCK_PLANTED.items()}
+    out = {}
+    with torch.no_grad():
+        top_e = MOE.route(p, x.reshape(n, -1), cfg)[3]
+        counts = MOE._expert_counts(top_e.reshape(-1), cfg.moe.n_experts)
+        for label, c in (("config", cfg), ("no_drop", MOE.no_drop(cfg))):
+            C = MOE._capacity(n, c.moe)
+            want = plain_grouped_moe(p, x, c)
+            got, _ = MOE.moe_mlp(p, x, c, with_aux=False)
+            ok, err = moe_close(got, want)
+            check(ok, f"{cfg.arch_id} MoE block ({label}) vs the plain "
+                  f"version: {err}")
+            check(bool(torch.isfinite(got).all()),
+                  f"{cfg.arch_id} MoE block ({label}) not finite")
+            row = {"capacity_factor": c.moe.capacity_factor, "capacity": C,
+                   "assignments": n * cfg.moe.top_k,
+                   "dropped": int((counts - C).clamp(min=0).sum()),
+                   "max_abs_err": err,
+                   "plain_max_abs": float(want.float().abs().max()),
+                   "planted": {}}
+            for name, mod in planted.items():
+                bad, _ = mod.moe_mlp(p, x, c, with_aux=False)
+                caught = not moe_close(bad, want)[0]
+                e = float((bad.float() - want.float()).abs().max())
+                check(caught, f"planted fault {name} passes the "
+                      f"{cfg.arch_id} MoE block check ({label}): {e}")
+                row["planted"][name] = e
+            out[label] = row
+    return {"tokens": [MOE_BLOCK["batch"], MOE_BLOCK["seq"]],
+            "layer": "blocks/moe[0]", "tol": DIST_MOE_TOL, **out}
 
 
 def first_layers(cfg, params, n: int) -> tuple:
@@ -2210,8 +2333,8 @@ def serve_phase(dev) -> dict:
     the second (small models) in a process of its own, then the last
     beside the third and the fourth in two more.  Returns the FrODO
     kernels' launches on the serve path of each model (there are none)."""
-    check(sorted(sum(SERVE_GROUPS, ())) == sorted(SERVE_ARCHS),
-          f"SERVE_GROUPS {SERVE_GROUPS} != SERVE_ARCHS")
+    check(sorted(sum(SERVE_GROUPS, SERVE_LATE)) == sorted(SERVE_ARCHS),
+          f"SERVE_GROUPS {SERVE_GROUPS} and SERVE_LATE != SERVE_ARCHS")
     small = start_phase(serve_models, SERVE_GROUPS[1])
     parts = [serve_models(dev, SERVE_GROUPS[0])]
     rest = [start_phase(serve_models, g) for g in SERVE_GROUPS[2:-1]]
@@ -2229,6 +2352,31 @@ def serve_phase(dev) -> dict:
             "planted": out["planted"], "traffic": out["traffic"]}
 
 
+def serve_late_phase(dev) -> dict:
+    """Serving SERVE_LATE (kimi-k2-1t-a32b at the depth of SERVE_LAYERS)
+    through :func:`serve_models`, alone on the card; its ``serve.late``
+    line adds the MoE block against its plain version and each model's
+    peak memory.  Returns the FrODO kernels' launches on its serve path
+    (there are none)."""
+    import torch
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    out = serve_models(dev, SERVE_LATE)
+    emit("serve.late", nvidia_smi=nvidia_smi(), archs=list(SERVE_LATE),
+         card_vs_cpu=out["card_vs_cpu"], card_vs_cpu_trace=SERVE_SMOKE,
+         decode_vs_forward=out["dvf"], planted_faults=out["planted"],
+         dvf_tol={a: DVF_TOL[a] for a in SERVE_LATE},
+         moe_block=out["moe_block"],
+         reduced={a: SERVE_LAYERS[a][1] for a in SERVE_LATE
+                  if a in SERVE_LAYERS},
+         peak_memory_bytes={a: max(t["peak_memory_bytes"],
+                                   t["checks_peak_memory_bytes"])
+                            for a, t in out["traffic"].items()},
+         seconds=time.perf_counter() - t0)
+    return {"launches": out["launches"]}
+
+
 def serve_models(dev, archs: tuple) -> dict:
     """Serving ``archs`` on the card: the launcher's default trace on the
     card against the card machine's CPU (smoke configs, f32); then per
@@ -2236,8 +2384,11 @@ def serve_models(dev, archs: tuple) -> dict:
     forward (and the ring; the f32 run of the MoE and MLA models at cut
     depth), with planted faults that must fail the same check, and traffic
     through the scheduler, solo runs and Engine.generate bit-equal to the
-    packed run, timed and profiled.  Each model draws its inputs from a
-    generator of its own (seeded by its place in SERVE_ARCHS)."""
+    packed run, timed and profiled.  A model of SERVE_LAYERS runs at its
+    cut depth throughout, in bf16 only, its planted faults in bf16; a
+    model of MOE_BLOCK_ARCHS also holds its first MoE layer against the
+    plain version.  Each model draws its inputs from a generator of its own
+    (seeded by its place in SERVE_ARCHS)."""
     import torch
     from repro_torch import tree as TR
     from repro_torch.configs import registry as REG
@@ -2272,11 +2423,13 @@ def serve_models(dev, archs: tuple) -> dict:
 
     # --------------- per model, full width and depth: decode vs forward,
     # then traffic
-    dvf, planted, traffic_out, launches = {}, {}, {}, {}
+    dvf, planted, traffic_out, launches, moe_block = {}, {}, {}, {}, {}
     for arch in archs:
         gen = torch.Generator(device=dev).manual_seed(
             3 + SERVE_ARCHS.index(arch))
-        cfg, params = load_model(arch, False, 0, dev)
+        cut, reduced = SERVE_LAYERS.get(arch, (0, None))
+        torch.cuda.reset_peak_memory_stats(dev)
+        cfg, params = load_model(arch, False, 0, dev, n_layers=cut)
         runs = {arch: (None, None, DVF["seq"])}
         if arch == RING_ARCH:
             runs["ring"] = (RING["window"], RING["max_len"], RING["seq"])
@@ -2289,7 +2442,9 @@ def serve_models(dev, archs: tuple) -> dict:
             dvf[f"{label}/bfloat16"], p_ = serve_dvf(
                 dev, label, cfg, params, toks, wo, max_len, frames)
             planted.update(p_)
-            if arch not in DVF_F32_LAYERS:
+            if reduced:
+                dvf[f"{label}/bfloat16"]["reduced"] = reduced
+            elif arch not in DVF_F32_LAYERS:
                 cfg32 = cfg.replace(param_dtype="float32",
                                     compute_dtype="float32")
                 params32 = TR.tree_map(lambda t: t.float(), params)
@@ -2298,15 +2453,22 @@ def serve_models(dev, archs: tuple) -> dict:
                 planted.update(p_)
                 del params32
                 torch.cuda.empty_cache()
+        if arch in MOE_BLOCK_ARCHS:
+            moe_block[arch] = serve_moe_block(dev, cfg, params, gen)
+        # the draw and the checks above (serve_traffic resets the peak)
+        checks_peak = torch.cuda.max_memory_allocated(dev)
         cfg_t, params_t = cfg, params
         if arch in SERVE_TRAFFIC_LAYERS:
             cfg_t, params_t = first_layers(cfg, params,
                                            SERVE_TRAFFIC_LAYERS[arch][0])
         traffic_out[arch], launches[f"serve_{arch}"] = serve_traffic(
             dev, arch, cfg_t, params_t, gen, tmp)
+        traffic_out[arch]["checks_peak_memory_bytes"] = checks_peak
         if arch in SERVE_TRAFFIC_LAYERS:
             traffic_out[arch]["reduced"] = {
                 "n_layers": SERVE_TRAFFIC_LAYERS[arch][1]}
+        elif reduced:
+            traffic_out[arch]["reduced"] = reduced
         del params_t
         emit("serve.traffic", arch=arch, nvidia_smi=nvidia_smi(),
              **traffic_out[arch])
@@ -2338,7 +2500,8 @@ def serve_models(dev, archs: tuple) -> dict:
             del params32
             torch.cuda.empty_cache()
     return {"card_vs_cpu": card_cpu, "launches": launches, "dvf": dvf,
-            "planted": planted, "traffic": traffic_out}
+            "planted": planted, "traffic": traffic_out,
+            "moe_block": moe_block}
 
 
 # ---------------------- the dry-run, the roofline and the experiments' CLIs
@@ -2876,7 +3039,8 @@ def plain_grouped_moe(params, x, cfg):
     ``moe.py``'s sort-and-scatter: per group, each assignment's place in
     its expert from a running count of one-hot rows, the kept tokens of
     each expert through its products one expert at a time, the outputs
-    added in f32.  Routing is ``moe.route``'s."""
+    added in f32, and a shared expert's (``params["shared"]``) products of
+    every token added in f32 too.  Routing is ``moe.route``'s."""
     import torch
     from repro_torch.models import layers as L
     from repro_torch.models import moe as MOE
@@ -2903,6 +3067,10 @@ def plain_grouped_moe(params, x, cfg):
             xe = xt[tok[sel]]
             y = (act(xe @ ex["gate"][j]) * (xe @ ex["up"][j])) @ ex["down"][j]
             out.index_add_(0, tok[sel], y.float() * w[sel][:, None])
+    if "shared" in params:
+        sh = params["shared"]
+        out += ((act(xt @ sh["gate"]["w"]) * (xt @ sh["up"]["w"]))
+                @ sh["down"]["w"]).float()
     return out.to(x.dtype).reshape(B, S, d)
 
 
@@ -5451,6 +5619,7 @@ def main() -> int:
     dist_launches = dist["launches"]
     tp = tensor_parallel_phase(dev, dist["ref_dir"])
     dist_launches.update(tp["launches"])
+    serve["launches"].update(serve_late_phase(dev)["launches"])
     fsdp = fsdp_phase(dev)
     dist_launches.update(fsdp["launches"])
     per_path = {name: {"exp2": launches_exp2[name],

@@ -13,11 +13,16 @@ the CPU:
         --requests 8
     PYTHONPATH=src python -m repro_torch.launch.serve --device cuda \\
         --no-smoke --arch h2o-danube-1.8b
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cuda \\
+        --no-smoke --arch kimi-k2-1t-a32b --n-layers 2
 
 ``--batch`` switches to the one-shot mode (a single ``Engine.generate``
 call over a fixed batch).  The initial weights are
 ``transformer.init_params`` drawn from a ``torch.Generator`` seeded with
-``--seed`` on the device, in the config's ``param_dtype``.
+``--seed`` on the device, in the config's ``param_dtype``.  ``--n-layers``
+serves the config at that depth (0 keeps the config's), as the trainer's
+flag does: kimi-k2-1t-a32b's 61 layers (1.03 T parameters) do not fit one
+card, its first two (one dense, one MoE) do.
 """
 import argparse
 from typing import Any, Callable, Dict, List, Optional, Tuple
@@ -63,12 +68,14 @@ def frames_shape(cfg) -> Optional[Tuple[int, int]]:
 
 def load_model(arch: str, smoke: bool, seed: int, device=None,
                param_dtype: str = "",
-               init_fn: Optional[Callable[[int], dict]] = None):
+               init_fn: Optional[Callable[[int], dict]] = None,
+               n_layers: int = 0):
     """``(cfg, params)`` on ``device``: the port's own draw from a
     generator seeded with ``seed``, or ``init_fn(seed)`` (a tree of numpy
     arrays, for example the JAX package's initial weights, or of tensors,
     which are moved to ``device``).  ``param_dtype`` sets the param and
-    compute dtype ("" keeps the config's)."""
+    compute dtype ("" keeps the config's); ``n_layers`` the depth (0 keeps
+    the config's): the config at that depth is drawn, nothing more."""
     import numpy as np
     import torch
     from repro_torch import tree as TR
@@ -79,6 +86,8 @@ def load_model(arch: str, smoke: bool, seed: int, device=None,
 
     dev = resolve_device(device)
     cfg = REG.get_smoke_config(arch) if smoke else REG.get_config(arch)
+    if n_layers:
+        cfg = cfg.replace(n_layers=n_layers)
     if param_dtype:
         cfg = cfg.replace(param_dtype=param_dtype, compute_dtype=param_dtype)
     if init_fn is not None:
@@ -101,8 +110,8 @@ def run_traffic(arch: str = "mamba2-780m", smoke: bool = True,
                 spans_out: str = "", device=None,
                 window_override: Optional[int] = None,
                 param_dtype: str = "",
-                init_fn: Optional[Callable[[int], dict]] = None
-                ) -> Dict[str, Any]:
+                init_fn: Optional[Callable[[int], dict]] = None,
+                n_layers: int = 0) -> Dict[str, Any]:
     """Seeded Poisson-arrival workload; returns a summary dict, with every
     request's tokens under ``"tokens"`` (in submission order).
 
@@ -115,14 +124,15 @@ def run_traffic(arch: str = "mamba2-780m", smoke: bool = True,
     profile_stop]``; ``spans_out`` writes the host-side phase spans as a
     Perfetto-loadable Chrome trace.  The arguments are the JAX launcher's,
     plus ``device`` (``cuda`` by default, which raises without a card),
-    ``window_override``, ``param_dtype`` and ``init_fn`` (see
-    :func:`load_model`).
+    ``window_override``, ``param_dtype``, ``init_fn`` and ``n_layers``
+    (see :func:`load_model`).
     """
     import numpy as np
     from repro_torch import obs
     from repro_torch.serving.scheduler import Scheduler, SchedulerConfig
 
-    cfg, params = load_model(arch, smoke, seed, device, param_dtype, init_fn)
+    cfg, params = load_model(arch, smoke, seed, device, param_dtype, init_fn,
+                             n_layers)
     sink = obs.JsonlSink(metrics_out) if metrics_out else obs.MemorySink()
     sch = Scheduler(cfg, params,
                     SchedulerConfig(max_slots=max_slots, max_len=max_len,
@@ -183,7 +193,8 @@ def _run_static(args) -> None:
     import numpy as np
     from repro_torch.serving.engine import Engine
 
-    cfg, params = load_model(args.arch, args.smoke, args.seed, args.device)
+    cfg, params = load_model(args.arch, args.smoke, args.seed, args.device,
+                             n_layers=args.n_layers)
     eng = Engine(cfg, params, max_len=args.max_len,
                  window_override=args.window_override)
     rng = np.random.default_rng(args.seed)
@@ -207,6 +218,8 @@ def main(argv=None):
                     help="the reduced smoke config (default); --no-smoke "
                          "serves the full config")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--n-layers", type=int, default=0,
+                    help="serve the config at this depth (0: the config's)")
     ap.add_argument("--max-len", type=int, default=64)
     ap.add_argument("--window-override", type=int, default=None,
                     help="serve with a sliding window of this size (a ring "
@@ -252,7 +265,8 @@ def main(argv=None):
                     profile_start=args.profile_start,
                     profile_stop=args.profile_stop,
                     spans_out=args.spans_out, device=args.device,
-                    window_override=args.window_override)
+                    window_override=args.window_override,
+                    n_layers=args.n_layers)
 
 
 if __name__ == "__main__":
